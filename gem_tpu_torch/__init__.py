@@ -1,0 +1,30 @@
+"""gem_tpu_torch — the PyTorch + CUDA port of gem_tpu for NVIDIA Hopper.
+
+The JAX package `gem_tpu` is the reference; this package mirrors its layout
+and function names so each module's counterpart is obvious:
+
+    core/        MapState, wrap-around index math, rolling move / re-anchor
+    kernels/     point processing, streaming fuse (CUDA kernel K1), plane-fit
+                 features (CUDA kernel K2), raytrace cleanup; csrc/ holds the
+                 kernels' CUDA C++ sources, kernels/_build.py builds them
+    sensors/     the four sensor noise models
+    motion/      pose-covariance -> map process noise
+    global_map/  the submap store
+    mapping/     the per-frame step and ElevationPipeline
+    io/          synthetic replay
+
+State is frozen dataclasses of tensors, functions are plain tensor code, and
+every constructor takes an explicit `device`.  On CPU tensors each kernel
+wrapper runs its plain PyTorch version; on CUDA tensors it launches the
+hand-written kernel.  This package never imports jax.
+"""
+
+import torch
+
+# Exact fp32 everywhere the JAX package forces Precision.HIGHEST
+# (gem_tpu/utils/precision.py): the sensor->map transform carries +-40 m
+# coordinates, and TF32's 10-bit mantissa would cost centimetres.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,121 @@
+"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+
+All of `gem_tpu_torch/csrc/*.cu` compile into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC --fmad=false
+
+`--fmad=false` keeps every a*b+c a rounded product plus a rounded sum, as
+in the plain PyTorch versions: the plane-fit epilogue picks its eigenvector
+by float equality and `acos` near 1 amplifies one ULP of its argument to
+~3e-4 rad of slope.  No `--use_fast_math` (it would swap in approximate
+division, sqrt and acos).
+
+The library lands in `build/gem_tpu_torch/` at the repository root, named
+by a hash of the sources and flags, and is built at first use: nothing
+here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gem_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: (argtypes); each returns cudaGetLastError() as an int
+_SIGNATURES = {
+    # offsets, h, v, inten, colf, elev0, var0, out, ncell,
+    # invalid_elevation, min_variance, mahalanobis_threshold,
+    # with_lowest, with_color, stream
+    "gem_fuse_stream_aggregate": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _F, _F, _F, _I, _I, _P),
+    # elevation, start, slope, rough, traver, normal_z, count, L,
+    # resolution, invalid_elevation, invalid_traversability,
+    # 1/slope_critical, 1/rough_critical, feature_min_neighbors, stream
+    "gem_plane_fit_features": (_P, _P, _P, _P, _P, _P, _P, _I,
+                               ctypes.c_double, _F, _F, _F, _F, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libgem_tpu_torch_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, float]:
+    """Compile the library if this source hash is not built yet.
+    Returns (path, seconds spent compiling; 0.0 when already built)."""
+    out = library_path()
+    if os.path.exists(out):
+        return out, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, with every entry point's types declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on `t`'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,160 @@
+"""The CUDA kernel wrappers: K1 `fuse_stream_aggregate` and K2
+`plane_fit_features`.
+
+This file imports no jax, so on a machine with a card it runs without the
+suite's conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tests that need the card take the `cuda` fixture and skip without one.  On
+the card each kernel is held against its plain PyTorch version: selection
+outputs bitwise, K1's two gated sums W and WH (f32 sums that the plain
+version adds with atomics in no fixed order) to 1e-5 relative, and K2's
+planes to 1e-5 (slope/traver 1e-3 where normal_z > 1 - 1e-6).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from gem_tpu_torch.config import benchmark_config
+from gem_tpu_torch.core.state import init_map_state
+from gem_tpu_torch.kernels import features as ft
+from gem_tpu_torch.kernels import fuse_stream as fs
+from gem_tpu_torch.kernels.pointproc import PointBatch
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(L, P, device, seed=0):
+    rng = np.random.default_rng(seed)
+    cfg = benchmark_config(length=L, max_points=P)
+    m = init_map_state(cfg.map, "cpu")
+    occ = rng.random((L, L)) < 0.5
+    elev = np.where(occ, rng.normal(size=(L, L)), -10.0).astype(np.float32)
+    var = np.where(occ, rng.uniform(1e-4, 0.2, (L, L)), -10.0).astype(
+        np.float32)
+    m = m.replace(elevation=torch.from_numpy(elev),
+                  variance=torch.from_numpy(var),
+                  start=torch.tensor([3, 17], dtype=torch.int32))
+    valid = rng.random(P) < 0.9
+    col = np.where(rng.random(P) < 0.5, rng.integers(1, 1 << 24, P), 0)
+    batch = PointBatch(
+        xy=torch.zeros((P, 2)),
+        height=torch.from_numpy((rng.normal(size=P) * 2).astype(np.float32)),
+        variance=torch.from_numpy(rng.uniform(1e-4, 0.3, P).astype(
+            np.float32)),
+        cell=torch.from_numpy(np.where(valid, rng.integers(0, L * L, P),
+                                       L * L).astype(np.int32)),
+        color=torch.from_numpy(col.astype(np.int32)),
+        intensity=torch.from_numpy(np.where(col != 0, rng.random(P),
+                                            0).astype(np.float32)),
+        valid=torch.from_numpy(valid))
+    move = lambda obj: type(obj)(**{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)})
+    return cfg, move(m), move(batch)
+
+
+def _k1_args(cfg, m, batch):
+    L = cfg.map.length
+    return (*fs.sort_points(batch, L * L), m.elevation.reshape(-1),
+            m.variance.reshape(-1), cfg.map)
+
+
+def test_cpu_tensors_run_the_plain_versions_uncounted():
+    cfg, m, batch = _inputs(16, 256, "cpu")
+    n1, n2 = fs.fuse_stream_aggregate.launches, ft.plane_fit_features.launches
+    args = _k1_args(cfg, m, batch)
+    assert torch.equal(fs.fuse_stream_aggregate(*args),
+                       fs.fuse_stream_aggregate_plain(*args))
+    a = ft.plane_fit_features(m, cfg.map)
+    b = ft.compute_features(m, cfg.map)
+    assert torch.equal(a.slope, b.slope)
+    assert fs.fuse_stream_aggregate.launches == n1
+    assert ft.plane_fit_features.launches == n2
+
+
+def test_other_devices_are_refused():
+    cfg, m, batch = _inputs(8, 64, "cpu")
+    meta = lambda t: torch.empty_like(t, device="meta")
+    args = [meta(t) for t in _k1_args(cfg, m, batch)[:-1]]
+    with pytest.raises(ValueError, match="unsupported device"):
+        fs.fuse_stream_aggregate(*args, cfg.map)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ft.plane_fit_features(m.replace(elevation=meta(m.elevation)),
+                              cfg.map)
+
+
+@pytest.mark.parametrize("L,P", [(64, 4096), (300, 1 << 17)])
+def test_k1_matches_plain_on_card(cuda, L, P):
+    cfg, m, batch = _inputs(L, P, cuda, seed=L)
+    args = _k1_args(cfg, m, batch)
+    before = fs.fuse_stream_aggregate.launches
+    k = fs.fuse_stream_aggregate(*args)
+    assert fs.fuse_stream_aggregate.launches == before + 1
+    p = fs.fuse_stream_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    exact = [r for r in range(16) if r not in (4, 5)]
+    assert torch.equal(k[exact], p[exact])
+    has = p[4] > 0
+    assert torch.equal(k[4] > 0, has)
+    rel = ((k[4:6] - p[4:6]).abs() / p[4].abs().clamp(min=1e-30))[:, has]
+    assert float(rel.max()) <= 1e-5
+    fused = fs.apply_aggregates(m, cfg, k)
+    assert not bool(torch.isnan(fused.elevation).any())
+
+
+def test_k1_rejects_wrong_dtype(cuda):
+    cfg, m, batch = _inputs(16, 256, cuda)
+    args = list(_k1_args(cfg, m, batch))
+    args[1] = args[1].double()
+    with pytest.raises(ValueError, match="expected contiguous"):
+        fs.fuse_stream_aggregate(*args)
+
+
+@pytest.mark.parametrize("L", [40, 257])
+def test_k2_matches_plain_on_card(cuda, L):
+    cfg, m, _ = _inputs(L, 64, cuda, seed=L)
+    before = ft.plane_fit_features.launches
+    k = ft.plane_fit_features(m, cfg.map)
+    assert ft.plane_fit_features.launches == before + 1
+    p = ft.compute_features(m, cfg.map)
+    torch.cuda.synchronize()
+    assert torch.equal(k.neighbor_count, p.neighbor_count)
+    flat = p.normal_z > 1.0 - 1e-6
+    for key in ("slope", "rough", "traver", "normal_z"):
+        d = (getattr(k, key) - getattr(p, key)).abs()
+        if key in ("slope", "traver"):
+            assert not bool((d[flat] > 1e-3).any()), key
+            d = d[~flat]
+        assert float(d.max()) <= 1e-5, key
+
+
+def test_step_on_card_matches_cpu(cuda):
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+
+    cfg = benchmark_config(length=64, max_points=4096)
+    gpu = ElevationPipeline(cfg, device=cuda)
+    cpu = ElevationPipeline(cfg, device="cpu")
+    for f, _, _ in synthetic_frames(cfg, 5, n_points=4000, speed=0.4,
+                                    seed=1, max_range=3.0):
+        cpu.process(f)
+        gpu.process(type(f)(**{k: None if v is None else v.to(cuda)
+                               for k, v in vars(f).items()}))
+    a, b = gpu.state.map, cpu.state.map
+    for key in ("elevation", "variance", "lowest"):
+        torch.testing.assert_close(getattr(a, key).cpu(), getattr(b, key),
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(a.traver.cpu(), b.traver, rtol=0, atol=1e-3)
+    assert torch.equal(a.color.cpu(), b.color)
+    assert torch.equal(a.start.cpu(), b.start)
