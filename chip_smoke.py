@@ -1,19 +1,29 @@
-"""Drive the PyTorch port's per-frame mapping step on one CUDA card.
+"""Drive the PyTorch port's mapping pipeline and CLI on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, one line each (times from CUDA events after a warm-up):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from gem_tpu_torch/csrc;
+  2. build the CUDA kernels from gem_tpu_torch/csrc (one nvcc per source,
+     in parallel);
   3. K1 (fuse_stream_aggregate) vs its plain PyTorch version on the card,
      at the L=1000 flagship: a 131072-point frame, a 1,048,576-point frame
      and a 131072-point frame with half its lanes colored;
   4. K2 (plane_fit_features) vs its plain version at L=1000;
-  5. the step on the card vs the same step on the CPU (plain versions),
-     L=256, 10 frames;
-  6. the flagship: L=1000, 131072-point frames, raytrace every frame, 30
+  5. K3 (segment_stats_sorted) vs its plain version on the five column
+     sets `fuse_pallas` reduces, on a 131072-point and a 1,048,576-point
+     frame at L=1000;
+  6. the fuse backends on one flagship frame: pallas, segment, sort and
+     stream against each other, and the `lowest` plane;
+  7. the step on the card vs the same step on the CPU (plain versions),
+     L=256, 10 frames, with the stream and the pallas backend;
+  8. the flagship: L=1000, 131072-point frames, raytrace every frame, 30
      frames at 0.5 m/frame, with launch counters, shed, keyframe and
-     accuracy checks.
+     accuracy checks: the stream path (K1, K2), then the pallas path (K3,
+     K2);
+  9. the CLI in-process: `run` at the benchmark preset with the pallas
+     backend and every product, a resume from its checkpoint, and the
+     kitti preset (orthomosaics stored) with the segment backend.
 Then one JSON line of per-kernel results, the nvidia-smi line again, and
 the last line {"ok": true, "device": {...}}.  Any failure raises: the
 script exits non-zero and prints no result.  It imports no jax.
@@ -22,9 +32,11 @@ script exits non-zero and prints no result.  It imports no jax.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,7 +82,8 @@ def rows_compare(a, b):
 
 
 def frame_batch(state, frame, cfg):
-    """The step's own stages up to the fuse: move, then point processing."""
+    """The step's own stages up to the fuse: move, then point processing.
+    Returns (moved map, point batch, pointproc's `lowest` plane)."""
     from gem_tpu_torch.core.move import move
     from gem_tpu_torch.kernels.pointproc import process_points
     from gem_tpu_torch.sensors.models import jacobian_ingredients
@@ -78,11 +91,11 @@ def frame_batch(state, frame, cfg):
     ms, _ = move(state.map, cfg.map, frame.track_position)
     jac = jacobian_ingredients(frame.r_map_base, frame.r_base_sensor,
                                frame.t_base_sensor)
-    batch, _ = process_points(
+    batch, lowest = process_points(
         ms, cfg, frame.points, frame.intensity, frame.valid, frame.transform,
         frame.t_map_base[2], jac[0], frame.pose_cov[3:, 3:], *jac[1:],
         colors=frame.colors)
-    return ms, batch
+    return ms, batch, lowest
 
 
 def phase_k1(cfg_fn, dev):
@@ -118,7 +131,7 @@ def phase_k1(cfg_fn, dev):
             pts[:, 2] += lift
             frame = dataclasses.replace(
                 frame, points=pts, colors=torch.from_numpy(col).to(dev))
-        ms, batch = frame_batch(state, frame, cfg)
+        ms, batch, _ = frame_batch(state, frame, cfg)
         L = cfg.map.length
         args = (*fs.sort_points(batch, L * L), ms.elevation.reshape(-1),
                 ms.variance.reshape(-1), cfg.map)
@@ -193,14 +206,14 @@ def phase_k2(cfg, state_map, dev):
     return err, t_k, t_p
 
 
-def phase_parity(dev):
+def phase_parity(dev, backend):
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
 
     cfg = benchmark_config(length=256, max_points=16384)
-    gpu = ElevationPipeline(cfg, device=dev)
-    cpu = ElevationPipeline(cfg, device="cpu")
+    gpu = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
+    cpu = ElevationPipeline(cfg, device="cpu", fuse_backend=backend)
     t0 = time.perf_counter()
     for f, _, _ in synthetic_frames(cfg, 10, n_points=16384, speed=0.5,
                                     seed=3, device="cpu"):
@@ -242,30 +255,241 @@ def phase_parity(dev):
                 and int(gpu.state.submaps.num_submaps)
                 == int(cpu.state.submaps.num_submaps),
                 "parity: submap counts differ")
-    print(f"phase 5 parity L=256 gpu-vs-cpu 10 frames: ok occupancy_agree="
+    print(f"phase 7 parity {backend} L=256 gpu-vs-cpu 10 frames: ok "
+          f"occupancy_agree="
           f"{agree:.6f} fused={int(both.sum())} max_abs_err={errs} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def phase_flagship(dev):
-    from gem_tpu_torch.config import benchmark_config
-    from gem_tpu_torch.core import index_math as im
+def fuse_pallas_calls(ms, cfg, batch):
+    """The argument tuples of the five `segment_stats_sorted` calls that
+    one `fuse_pallas` makes on this frame, recorded around the real call."""
+    from gem_tpu_torch.kernels import fuse as fz
+
+    calls = []
+    real = fz.segment_stats_sorted
+
+    def record(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    fz.segment_stats_sorted = record
+    try:
+        fz.fuse_pallas(ms, cfg, batch)
+    finally:
+        fz.segment_stats_sorted = real
+    fail_unless(len(calls) == 5, f"fuse_pallas made {len(calls)} calls")
+    return calls
+
+
+def k3_compare(args):
+    """K3 against its plain version on one call's arguments: mins and maxs
+    bitwise, each sum within 1e-5 of the sum of its terms' magnitudes (the
+    plain version adds with atomics in no fixed order).  Returns the max
+    abs error of the sums."""
+    from gem_tpu_torch.kernels import segment_stats as sst
+
+    ids_s, sv, mv, xv, S = args
+    ks, kn, kx, _ = sst.segment_stats_sorted(*args)
+    ps, pn, px = sst.segment_stats_sorted_plain(*args)
+    mag = sst.segment_stats_sorted_plain(ids_s, sv.abs(), mv, xv, S)[0]
+    torch.cuda.synchronize()
+    fail_unless(bool(torch.equal(kn, pn) and torch.equal(kx, px)),
+                "K3: mins/maxs differ from the plain version")
+    d = (ks - ps).abs()
+    fail_unless(bool((d <= 1e-5 * mag).all()),
+                f"K3: sums differ by up to {float(d.max())}")
+    return float(d.max())
+
+
+def phase_k3(cfg_fn, dev):
+    """K3 vs plain on the five column sets of fuse_pallas, on the third
+    frame of a 131072-point and of a 1,048,576-point drive (two warm frames
+    through the pallas step first).  Returns (results, the 131k frame's
+    (cfg, moved map, batch, lowest))."""
     from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.kernels import segment_stats as sst
+    from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
+
+    results, flagship = [], None
+    for name, n in (("131k", 1 << 17), ("1M", 1 << 20)):
+        cfg = cfg_fn(max_points=n)
+        frames = [f for f, _, _ in synthetic_frames(
+            cfg, 3, n_points=n, speed=0.5, seed=1, device=dev)]
+        state = init_pipeline_state(cfg, dev)
+        for f in frames[:2]:
+            state, _ = step(state, f, cfg, fuse_backend="pallas")
+        ms, batch, lowest = frame_batch(state, frames[2], cfg)
+        calls = fuse_pallas_calls(ms, cfg, batch)
+        err = max(k3_compare(a) for a in calls)
+        # the wrapper as fuse_pallas calls it: offsets search + kernel
+        t_k = sum(cuda_ms(lambda: sst.segment_stats_sorted(
+            *a, with_spill=False), 20) for a in calls)
+        t_p = sum(cuda_ms(lambda: sst.segment_stats_sorted_plain(*a), 20)
+                  for a in calls)
+        print(f"phase 5 K3 {name}: ok points={int(batch.valid.sum())} "
+              f"calls=5 F={[tuple(x.shape[0] for x in a[1:4]) for a in calls]}"
+              f" mins_maxs=bitwise sums_max_abs_err={err:.3g} "
+              f"kernel_ms_per_call={t_k / 5:.4f} plain_ms_per_call="
+              f"{t_p / 5:.4f} kernel_ms_per_frame={t_k:.4f} "
+              f"plain_ms_per_frame={t_p:.4f}", flush=True)
+        results.append((name, err, t_k / 5, t_p / 5))
+        if name == "131k":
+            flagship = (cfg, ms, batch, lowest)
+    return results, flagship
+
+
+def phase_backends(cfg, ms, batch, lowest):
+    """The four fuse backends on one flagship frame.  pallas vs segment:
+    the JAX suite's bounds (tests/test_fuse.py, rtol 3e-5 / atol 1e-5);
+    stream vs segment: 5e-5 (phase 3's bound: per-cell f32 sums in another
+    order); sort vs segment: 0.05 m and 2% of the variance, since its sums
+    are a global f32 cumsum minus the carry at each run start and the
+    prefix of 1/v over 131072 points reaches ~1e8 (an ULP of 8); colors
+    equal everywhere; pointproc's `lowest` bitwise the stream fuse's."""
+    from gem_tpu_torch.kernels.fuse import fuse
+    from gem_tpu_torch.kernels.fuse_stream import fuse_stream
+
+    base = ms.replace(lowest=lowest)
+    out = {b: fuse(base, cfg, batch, backend=b)
+           for b in ("segment", "sort", "pallas")}
+    out["stream"] = fuse_stream(ms, cfg, batch)
+    torch.cuda.synchronize()
+    seg = out["segment"]
+    errs = {}
+    for b in ("pallas", "stream", "sort"):
+        o = out[b]
+        fail_unless(bool(torch.equal(o.color, seg.color)),
+                    f"backends: {b} color differs from segment")
+        e = {k: float((getattr(o, k) - getattr(seg, k)).abs().max())
+             for k in ("elevation", "variance", "intensity")}
+        errs[b] = e
+        if b == "pallas":
+            for k in e:
+                a, r = getattr(o, k), getattr(seg, k)
+                fail_unless(bool(torch.allclose(a, r, rtol=3e-5, atol=1e-5)),
+                            f"backends: pallas {k} vs segment {e}")
+        elif b == "stream":
+            fail_unless(max(e.values()) <= 5e-5,
+                        f"backends: stream vs segment {e}")
+        else:
+            rel_v = float(((o.variance - seg.variance).abs()
+                           / seg.variance.abs()).max())
+            errs[b]["variance_rel"] = rel_v
+            fail_unless(e["elevation"] <= 0.05 and rel_v <= 0.02
+                        and e["intensity"] == 0.0,
+                        f"backends: sort vs segment {errs[b]}")
+    fail_unless(bool(torch.equal(lowest, out["stream"].lowest)),
+                "backends: pointproc lowest differs from the stream fuse's")
+    inv = cfg.map.invalid_elevation
+    fused = int((seg.elevation != inv).sum())
+    fail_unless(fused > 0.05 * cfg.map.length ** 2,
+                f"backends: only {fused} cells fused")
+    print(f"phase 6 backends L={cfg.map.length} P={batch.valid.numel()}: "
+          f"ok fused={fused} "
+          f"max_abs_vs_segment={errs} lowest=bitwise", flush=True)
+
+
+def png_shape(path):
+    with open(path, "rb") as f:
+        head = f.read(24)
+    fail_unless(head[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    w, h = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24],
+                                                                "big")
+    return h, w, 3
+
+
+def pcd_points(path):
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"POINTS"):
+                return int(line.split()[1])
+    raise AssertionError(f"{path}: no POINTS line")
+
+
+def phase_cli(dev):
+    """`python -m gem_tpu_torch run` in-process on the card, into a
+    temporary directory."""
+    from gem_tpu_torch.config import benchmark_config, kitti_config
+    from gem_tpu_torch.io.cli import main as cli
+
+    L, Lk = benchmark_config().map.length, kitti_config().map.length
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)
+        bench = ["run", "--device", dev.type, "--preset", "benchmark",
+                 "--fuse-backend", "pallas"]
+        fail_unless(cli([*bench, "--frames", "30", "--save-map", p("map.pcd"),
+                         "--save-ortho", p("ortho.png"), "--save-heatmap",
+                         p("heat.png"), "--save-costmap", p("cost.png"),
+                         "--checkpoint", p("ck.npz"), "--metrics-out",
+                         p("m.jsonl")]) == 0, "cli: benchmark run failed")
+        for name in ("ortho.png", "heat.png", "cost.png"):
+            fail_unless(png_shape(p(name)) == (L, L, 3),
+                        f"cli: {name} is {png_shape(p(name))}")
+        n_map = pcd_points(p("map.pcd"))
+        fail_unless(n_map > 0.001 * L * L,
+                    f"cli: map.pcd holds {n_map} points")
+        with open(p("m.jsonl")) as f:
+            rows = [json.loads(x) for x in f]
+        fail_unless(len(rows) == 30 and rows[-1]["cells_fused"] > 0,
+                    "cli: metrics stream")
+        fail_unless(cli([*bench, "--frames", "5", "--resume", p("ck.npz"),
+                         "--checkpoint", p("ck2.npz")]) == 0,
+                    "cli: resume failed")
+        idx = (int(np.load(p("ck.npz"))["frame_idx"]),
+               int(np.load(p("ck2.npz"))["frame_idx"]))
+        fail_unless(idx == (30, 35), f"cli: frame_idx {idx} != (30, 35)")
+        fail_unless(cli(["run", "--device", dev.type, "--preset", "kitti",
+                         "--fuse-backend", "segment", "--frames", "30",
+                         "--publish-submaps", p("records")]) == 0,
+                    "cli: kitti run failed")
+        recs = sorted(os.listdir(p("records")))
+        fail_unless(len(recs) >= 1, "cli: no submap record")
+        rec = np.load(os.path.join(p("records"), recs[0]))
+        ortho = rec["ortho_image"]
+        fail_unless(ortho.shape == (Lk, Lk, 3) and ortho.dtype == np.uint8
+                    and rec["points"].shape[0] > 0,
+                    f"cli: record ortho {ortho.shape} {ortho.dtype}")
+    print(f"phase 9 cli: ok benchmark/pallas 30 frames map_points={n_map} "
+          f"pngs={L}x{L}x3 resumed_frame_idx={idx[1]} kitti/segment "
+          f"records={len(recs)} ortho={ortho.shape} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by name: each counts its launches
+    in `.launches`."""
     from gem_tpu_torch.kernels.features import plane_fit_features
     from gem_tpu_torch.kernels.fuse_stream import fuse_stream_aggregate
+    from gem_tpu_torch.kernels.segment_stats import segment_stats_sorted
+
+    return {"fuse_stream_aggregate": fuse_stream_aggregate,
+            "plane_fit_features": plane_fit_features,
+            "segment_stats_sorted": segment_stats_sorted}
+
+
+def phase_flagship(dev, backend, frames, world):
+    """30 flagship frames through ElevationPipeline with `backend`; every
+    launch count is set to 0 just before and read just after.  Returns
+    (launches by kernel, median step ms)."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.core import index_math as im
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
 
     cfg = benchmark_config()
-    n_frames = 30
-    frames, world = [], None
-    for f, _, world in synthetic_frames(cfg, n_frames, n_points=131072,
-                                        speed=0.5, seed=0, device=dev):
-        frames.append(f)
-    pipe = ElevationPipeline(cfg, device=dev)
+    n_frames = len(frames)
+    # the kernels of each path, and their launches per frame
+    expect = {"stream": {"fuse_stream_aggregate": 1, "plane_fit_features": 1,
+                         "segment_stats_sorted": 0},
+              "pallas": {"fuse_stream_aggregate": 0, "plane_fit_features": 1,
+                         "segment_stats_sorted": 5}}[backend]
+    pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
+    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fuse_stream_aggregate.launches = 0
-    plane_fit_features.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     times, sheds, fused = [], [], []
     for f in frames:
         t0 = time.perf_counter()
@@ -274,11 +498,11 @@ def phase_flagship(dev):
         times.append((time.perf_counter() - t0) * 1e3)
         sheds.append(int(out.metrics["shed_count"]))
         fused.append(int(out.metrics["cells_fused"]))
-    launches = {"fuse_stream_aggregate": fuse_stream_aggregate.launches,
-                "plane_fit_features": plane_fit_features.launches}
+    launches = {k: w.launches for k, w in wrappers.items()}
     st = pipe.state
-    fail_unless(all(v == n_frames for v in launches.values()),
-                f"flagship: launch counts {launches} != {n_frames}")
+    fail_unless(launches == {k: n * n_frames for k, n in expect.items()},
+                f"flagship {backend}: launch counts {launches}, expected "
+                f"{expect} per frame over {n_frames} frames")
     fail_unless(fused[-1] > 0, "flagship: no cells fused")
     fail_unless(max(sheds) > 0, "flagship: no band was ever shed")
     fail_unless(int(st.submaps.num_submaps) >= 1,
@@ -305,8 +529,8 @@ def phase_flagship(dev):
                 f"flagship: rmse {rmse} / median {med} vs ground truth")
     step_ms = statistics.median(times[5:])
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 6 flagship L=1000 P=131072 raytrace_every=1 {n_frames} "
-          f"frames: ok step_ms_median(5..30)={step_ms:.3f} "
+    print(f"phase 8 flagship {backend} L=1000 P=131072 raytrace_every=1 "
+          f"{n_frames} frames: ok step_ms_median(5..30)={step_ms:.3f} "
           f"step_ms_min={min(times[5:]):.3f} first_frame_ms={times[0]:.1f} "
           f"cells_fused={fused[-1]} shed_frames={sum(s > 0 for s in sheds)} "
           f"num_submaps={int(st.submaps.num_submaps)} rmse_vs_truth={rmse:.5f}"
@@ -320,6 +544,7 @@ def main():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
     from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
@@ -336,14 +561,27 @@ def main():
 
     k1, prior = phase_k1(benchmark_config, dev)
     k2_err, k2_ms, k2_plain = phase_k2(benchmark_config(), prior, dev)
-    phase_parity(dev)
-    launches, _ = phase_flagship(dev)
+    k3, flagship_frame = phase_k3(benchmark_config, dev)
+    phase_backends(*flagship_frame)
+    del flagship_frame
+    phase_parity(dev, "stream")
+    phase_parity(dev, "pallas")
+    frames, world = [], None
+    for f, _, world in synthetic_frames(benchmark_config(), 30,
+                                        n_points=131072, speed=0.5, seed=0,
+                                        device=dev):
+        frames.append(f)
+    launches, _ = phase_flagship(dev, "stream", frames, world)
+    launches_pallas, _ = phase_flagship(dev, "pallas", frames, world)
+    del frames
+    phase_cli(dev)
 
     k1_main = next(r for r in k1 if r[0] == "131k")
+    k3_main = next(r for r in k3 if r[0] == "131k")
     kernels = [
         {"name": "fuse_stream_aggregate", "route": "cuda",
          "source": "gem_tpu_torch/csrc/fuse_stream.cu",
-         "replaces": "gem_tpu/kernels/fuse_stream.py:521",
+         "replaces": "gem_tpu/kernels/fuse_stream.py:521, :213, :757",
          "launches": launches["fuse_stream_aggregate"],
          "max_abs_err": max(r[1] for r in k1),
          "ms": k1_main[2], "plain_ms": k1_main[3]},
@@ -352,6 +590,12 @@ def main():
          "replaces": "gem_tpu/kernels/features_pallas.py:42",
          "launches": launches["plane_fit_features"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+        {"name": "segment_stats_sorted", "route": "cuda",
+         "source": "gem_tpu_torch/csrc/segment_stats.cu",
+         "replaces": "gem_tpu/kernels/pallas_scatter.py:40",
+         "launches": launches_pallas["segment_stats_sorted"],
+         "max_abs_err": max(r[1] for r in k3),
+         "ms": k3_main[2], "plain_ms": k3_main[3]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,14 +4,21 @@ The JAX package `gem_tpu` is the reference; this package mirrors its layout
 and function names so each module's counterpart is obvious:
 
     core/        MapState, wrap-around index math, rolling move / re-anchor
-    kernels/     point processing, streaming fuse (CUDA kernel K1), plane-fit
+    kernels/     point processing (with the `lowest` bound), streaming fuse
+                 (CUDA kernel K1), the segment / sort / pallas fuse over
+                 scatter.py and segment_stats.py (CUDA kernel K3), plane-fit
                  features (CUDA kernel K2), raytrace cleanup; csrc/ holds the
                  kernels' CUDA C++ sources, kernels/_build.py builds them
     sensors/     the four sensor noise models
     motion/      pose-covariance -> map process noise
-    global_map/  the submap store
+    global_map/  the submap store (with the orthomosaic ring)
     mapping/     the per-frame step and ElevationPipeline
-    io/          synthetic replay
+    render/      costmaps, inflation, orthomosaic, heatmap, grid cloud
+    io/          synthetic and npz replay, npz checkpoints, the `run` CLI
+                 (`python -m gem_tpu_torch run`)
+    utils/       precision rules, metrics / phase timing / torch.profiler
+    shared.py    gem_tpu's JAX-free modules (config, pcd, image, msgs,
+                 sensor catalog, native runtime), loaded by path
 
 State is frozen dataclasses of tensors, functions are plain tensor code, and
 every constructor takes an explicit `device`.  On CPU tensors each kernel

@@ -110,7 +110,7 @@ def shift_clear_band(start_indice_i, index_shift_i, length: int):
 
 
 def roll_to_geo(plane, start):
-    """Storage-indexed (L, L) plane -> geographic layout:
+    """Storage-indexed (L, L, ...) plane -> geographic layout:
     out[g] = plane[(g + start) mod L].  The counterpart of
     `jnp.roll(plane, -start)`, written as a gather by device indices so the
     shift never has to be read to the host."""

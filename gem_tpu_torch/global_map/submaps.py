@@ -6,8 +6,8 @@ staging ring that defers the shed compaction (SubmapConfig.staging_frames).
 Appends are cumsum compaction plus one scatter; targets past the capacity
 land in a dump row that is cut off, so no append reads a count to the host.
 
-In place: the two large rings, `staging` and `slots`, are updated in place
-(one band copy per frame, one slot copy per keyframe) instead of being
+In place: the large rings, `staging`, `slots` and `orthos`, are updated in
+place (one band copy per frame, one slot copy per keyframe) instead of being
 rebuilt, which would copy ~60 MB each per frame at the flagship size.  The
 store passed to `append_shed`, `flush_staging` and `finalize_submap` is
 consumed; use the returned one.
@@ -73,7 +73,7 @@ class SubmapStore:
     dropped: torch.Tensor         # () int32 points lost to capacity
     staging: PointBuffer          # (S, band) deferred shed bands
     staging_used: torch.Tensor    # () int32 staged frames
-    orthos: torch.Tensor          # (K, 0, 0, 3) uint8: orthomosaics unported
+    orthos: torch.Tensor          # (K, L, L, 3) uint8, or (K, 0, 0, 3) off
     kf_points: torch.Tensor       # (K, M, 3) raw keyframe scan
     kf_counts: torch.Tensor       # (K,) int32
 
@@ -82,12 +82,8 @@ class SubmapStore:
 
 
 def init_store(cfg, device) -> SubmapStore:
-    if cfg.submap.store_ortho:
-        raise NotImplementedError(
-            "submap.store_ortho=True needs render/orthomosaic, which is not "
-            "ported yet (ROADMAP Queue 1, render/); use store_ortho=False "
-            "(benchmark_config does)")
     K, C = cfg.submap.max_submaps, cfg.submap.capacity
+    Lo = cfg.map.length if cfg.submap.store_ortho else 0
     M = cfg.submap.keyframe_scan_points
     band = 2 * cfg.map.max_shift_cells * cfg.map.length  # == ShedCells size
     i32 = dict(dtype=torch.int32, device=device)
@@ -106,7 +102,8 @@ def init_store(cfg, device) -> SubmapStore:
         dropped=torch.zeros((), **i32),
         staging=empty_buffer((cfg.submap.staging_frames, band), device),
         staging_used=torch.zeros((), **i32),
-        orthos=torch.zeros((K, 0, 0, 3), dtype=torch.uint8, device=device),
+        orthos=torch.zeros((K, Lo, Lo, 3), dtype=torch.uint8,
+                           device=device),
         kf_points=torch.zeros((K, M, 3), **f32),
         kf_counts=torch.zeros((K,), **i32),
     )
@@ -203,11 +200,12 @@ def grid_to_points(state: MapState, cfg, traver) -> PointBuffer:
 
 
 def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
-                    keyframe_pose, kf_points=None,
+                    keyframe_pose, ortho=None, kf_points=None,
                     kf_count=None) -> SubmapStore:
     """Close the current submap: accumulator + grid snapshot -> next ring
-    slot; optional raw keyframe scan `kf_points` (M, 3) with `kf_count`
-    valid rows."""
+    slot; optional (L, L, 3) orthomosaic `ortho` (written in place into
+    the `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
+    `kf_count` valid rows."""
     K = store.counts.shape[0]
     slot = torch.remainder(store.num_submaps, K).reshape(1).long()
     store = flush_staging(store)   # staged bands precede the grid snapshot
@@ -216,6 +214,8 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
     for f in _FIELDS:
         getattr(store.slots, f).index_copy_(0, slot,
                                             getattr(merged, f)[None])
+    if ortho is not None and store.orthos.shape[1] > 0:
+        store.orthos.index_copy_(0, slot, ortho.to(torch.uint8)[None])
     pose = keyframe_pose.to(torch.float32)
     put = lambda arr, v: arr.index_copy(0, slot, v[None])
     kf_pts, kf_counts = store.kf_points, store.kf_counts

@@ -1,9 +1,15 @@
-"""Synthetic dataset replay: procedural terrain, simulated LiDAR, a drive.
+"""Dataset replay: frames in, no ROS.
 
-Counterpart of gem_tpu/io/replay.py `SyntheticWorld` / `synthetic_frames`.
-The generator is the same NumPy code drawing the same RNG sequence, so for
-one seed both packages replay identical frames; here each frame's arrays
-become tensors on the requested device.
+Counterpart of gem_tpu/io/replay.py, with two sources:
+
+  * `SyntheticWorld` / `synthetic_frames`: procedural terrain, simulated
+    LiDAR and a drive.  The generator is the same NumPy code drawing the
+    same RNG sequence, so for one seed both packages replay identical
+    frames.
+  * npz sequences (`load_npz_frame`), one file per frame, padded to
+    cfg.max_points by `pad_frame`.
+
+Each frame's arrays become tensors on the requested device.
 """
 
 from __future__ import annotations
@@ -15,7 +21,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from gem_tpu_torch.mapping.pipeline import Frame
+from gem_tpu_torch.mapping.pipeline import Frame, frame_from_numpy
+from gem_tpu_torch.shared import load as _load_shared
 
 
 @dataclasses.dataclass
@@ -121,3 +128,72 @@ def synthetic_frames(cfg, n_frames: int, n_points: Optional[int] = None,
         x += speed * math.cos(th)
         y += speed * math.sin(th)
         th += 0.002
+
+
+# ---------------------------------------------------------------------------
+# npz sequences
+
+
+def pad_frame(cfg, points, intensity=None, colors=None, transform=None,
+              track_position=None, device="cpu", **kw) -> Frame:
+    """Build a Frame from ragged NumPy inputs, padding to cfg.max_points.
+
+    When cfg.prefilter.leaf > 0 the native voxel-grid pre-filter runs first
+    (skipped when per-point colors are already attached, as in
+    gem_tpu)."""
+    pf = cfg.prefilter
+    if pf.leaf > 0 and colors is None:
+        points, intensity = _load_shared("native/__init__.py").voxel_filter(
+            points, intensity, leaf=pf.leaf,
+            crop=(pf.crop_x, pf.crop_y, pf.crop_z))
+    P = cfg.max_points
+    n = min(len(points), P)
+    pts = np.zeros((P, 3), np.float32)
+    pts[:n] = np.asarray(points, np.float32)[:n]
+    valid = np.zeros((P,), bool)
+    valid[:n] = True
+    inten = np.zeros((P,), np.float32)
+    if intensity is not None:
+        inten[:n] = np.asarray(intensity, np.float32)[:n]
+    col = np.zeros((P,), np.int32)
+    if colors is not None:
+        col[:n] = np.asarray(colors, np.int32)[:n]
+    T = np.eye(4, dtype=np.float32) if transform is None else \
+        np.asarray(transform, np.float32)
+    track = np.zeros(3, np.float32) if track_position is None else \
+        np.asarray(track_position, np.float32)
+    fields = dict(
+        r_base_sensor=np.eye(3, dtype=np.float32),
+        t_base_sensor=np.zeros(3, np.float32),
+        r_map_base=np.eye(3, dtype=np.float32),
+        t_map_base=np.asarray(track, np.float32),
+        pose_quat=np.asarray([1.0, 0.0, 0.0, 0.0], np.float32),
+        pose_cov=np.zeros((6, 6), np.float32), image=None,
+        loop_closure=np.zeros((), bool))
+    fields.update(kw)
+    return frame_from_numpy(Frame(points=pts, intensity=inten, valid=valid,
+                                  transform=T, track_position=track,
+                                  colors=col, **fields), device)
+
+
+def load_npz_frame(cfg, path, device="cpu") -> Frame:
+    """Frame from one npz record (a path, or raw bytes from a prefetcher).
+
+    Schema (KITTI/YQ converter output): points (N,3) f32 sensor frame,
+    intensity (N,), optional colors (N,) packed rgb, transform (4,4)
+    sensor->map, track_position (3,), optional pose_quat (4,),
+    pose_cov (6,6), image (H,W,3) u8."""
+    import io
+
+    d = np.load(io.BytesIO(path) if isinstance(path, bytes) else path)
+    kw = {}
+    if "pose_quat" in d:
+        kw["pose_quat"] = np.asarray(d["pose_quat"], np.float32)
+    if "pose_cov" in d:
+        kw["pose_cov"] = np.asarray(d["pose_cov"], np.float32)
+    if "image" in d:
+        kw["image"] = np.asarray(d["image"])
+    get = lambda k: d[k] if k in d.files else None
+    return pad_frame(cfg, d["points"], get("intensity"), get("colors"),
+                     get("transform"), get("track_position"), device=device,
+                     **kw)

@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
-All of `gem_tpu_torch/csrc/*.cu` compile into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Each of `gem_tpu_torch/csrc/*.cu` compiles to an object, one nvcc per
+source, all started together; the objects link into ONE shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC --fmad=false
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC --fmad=false -c <source>
+    nvcc -shared <objects>
 
 `--fmad=false` keeps every a*b+c a rounded product plus a rounded sum, as
 in the plain PyTorch versions: the plane-fit epilogue picks its eigenvector
@@ -34,13 +36,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gem_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # C entry points: (argtypes); each returns cudaGetLastError() as an int
 _SIGNATURES = {
+    # offsets, sum_vals, min_vals, max_vals, sums, mins, maxs, n,
+    # num_segments, n_sum, n_min, n_max, stream
+    "gem_segment_stats_sorted": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                                 _I, _I, _P),
     # offsets, h, v, inten, colf, elev0, var0, out, ncell,
     # invalid_elevation, min_variance, mahalanobis_threshold,
     # with_lowest, with_color, stream
@@ -86,13 +93,31 @@ def build() -> tuple[str, float]:
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cus = [s for s in _sources() if s.endswith(".cu")]
+    tag = f"{out[:-3]}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tag}.{os.path.basename(src)[:-3]}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for obj, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            for _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{obj}:\n{log}")
+    tmp = f"{tag}.so.tmp"
+    proc = subprocess.run([nvcc, "-shared", "-o", tmp,
+                           *(obj for obj, _ in jobs)],
                           capture_output=True, text=True)
+    for obj, _ in jobs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return out, time.perf_counter() - t0
@@ -108,6 +133,16 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_tensors(name, tensors, dtypes) -> None:
+    """Raise unless every tensor is contiguous, of its dtype, and on the
+    first one's device: what a kernel's raw pointers assume."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} tensors on "
+                             f"{dev}, got {t.dtype} on {t.device}")
 
 
 def check(err: int, name: str) -> None:

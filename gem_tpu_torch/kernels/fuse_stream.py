@@ -151,14 +151,6 @@ def fuse_stream_aggregate_plain(offsets, h, v, inten, colf, elev0, var0,
     return out
 
 
-def _check_cuda(name, tensors, dtypes):
-    dev = tensors[0].device
-    for t, dt in zip(tensors, dtypes):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dt} tensors on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-
-
 def fuse_stream_aggregate(offsets, h, v, inten, colf, elev0, var0, mcfg,
                           with_lowest: bool = True, with_color: bool = True):
     """The 16 per-cell aggregate rows, (16, ncell) float32.
@@ -175,7 +167,7 @@ def fuse_stream_aggregate(offsets, h, v, inten, colf, elev0, var0, mcfg,
                          f"{h.device}")
     ncell = offsets.numel() - 1
     f32 = torch.float32
-    _check_cuda("fuse_stream_aggregate",
+    _build.check_tensors("fuse_stream_aggregate",
                 [h, offsets, v, inten, colf, elev0, var0],
                 [f32, torch.int64, f32, f32, f32, f32, f32])
     if elev0.numel() != ncell or var0.numel() != ncell:

@@ -2,9 +2,12 @@
 
 Counterpart of gem_tpu/kernels/pointproc.py (G_pointsprocess plus the
 per-frame colorization loop), over a fixed-size padded point batch with a
-validity mask.  Only the stream path is ported: the `lowest` bound rides
-the streaming fuse (kernels/fuse_stream.py), so `compute_lowest=True` (the
-3-key sort the segment/sort fuse backends need) raises.
+validity mask.
+
+It also computes the per-cell lowest-scan bound that the segment, sort and
+pallas fuse backends need (the stream fuse reads the same winner off its
+sorted run ends, kernels/fuse_stream.py).  As in the reference, `lowest`
+is indexed by GEOGRAPHIC cell, unlike every other plane.
 """
 
 from __future__ import annotations
@@ -83,17 +86,34 @@ def _body_filter(cfg, points):
     return in_body | ((y > -1.0) & (y < 1.0)) | (y > 0.0)
 
 
+def lowest_bound(lowest, geo_cell, height, var, valid, L: int):
+    """min(lowest, per-geographic-cell bound): the cell's winner is its
+    minimum h and, among exact-h ties, the maximum v; its bound is h + 3v.
+
+    JAX takes the winner off a 3-key sort by (geo_cell, h, -v) and computes
+    h - 3 * (-v), which is bitwise h + 3v.  Here two order-free reductions
+    pick the same winner: amin of h, then amax of v over the lanes whose h
+    equals that min (== treats -0.0 and +0.0 as equal, as lax.sort does)."""
+    ids = torch.where(valid, geo_cell.to(torch.int64), L * L)
+    inf = float("inf")
+    h_s = torch.where(valid, height, inf)
+    hmin = torch.full((L * L + 1,), inf, device=height.device)
+    hmin.scatter_reduce_(0, ids, h_s, "amin")
+    tie = valid & (height == hmin[ids])
+    vmax = torch.full((L * L + 1,), -inf, device=height.device)
+    vmax.scatter_reduce_(0, ids, torch.where(tie, var, -inf), "amax")
+    hmin, vmax = hmin[:L * L], vmax[:L * L]
+    cand = torch.where(hmin < inf, hmin + 3.0 * vmax, inf)
+    return torch.minimum(lowest.reshape(-1), cand).reshape(L, L)
+
+
 def process_points(state: MapState, cfg, points, intensity, in_valid,
                    transform, base_z, sensor_jacobian, rotation_variance,
                    c_sb_t, p_mul_c_bm_t, b_r_bs_skew, image=None,
-                   colors=None, compute_lowest=False):
-    """Returns the processed PointBatch and the (unchanged) lowest plane:
-    on the stream path the fuse owns the lowest reduction."""
-    if compute_lowest and cfg.enable_lowest:
-        raise NotImplementedError(
-            "the 3-key pointproc lowest reduction serves only the "
-            "segment/sort fuse backends, which are not ported yet "
-            "(ROADMAP Queue 1); the stream fuse computes lowest itself")
+                   colors=None, compute_lowest=True):
+    """Returns the processed PointBatch and the updated (geographic) lowest
+    plane; with `compute_lowest=False` (the stream fuse owns the reduction)
+    the plane comes back unchanged."""
     L = cfg.map.length
     points = points.to(torch.float32)
     T = transform.to(torch.float32)
@@ -134,8 +154,11 @@ def process_points(state: MapState, cfg, points, intensity, in_valid,
     valid = valid & in_map
     sx, sy = im.geo_to_storage(gx, gy, state.start, L)
     cell = torch.where(valid, sx * L + sy, L * L).to(torch.int32)
+    lowest = state.lowest
+    if cfg.enable_lowest and compute_lowest:
+        lowest = lowest_bound(lowest, gx * L + gy, height, var, valid, L)
 
     batch = PointBatch(xy=ts[:, :2], height=height, variance=var, cell=cell,
                        color=color, intensity=intensity.to(torch.float32),
                        valid=valid)
-    return batch, state.lowest
+    return batch, lowest

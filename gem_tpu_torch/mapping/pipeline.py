@@ -2,12 +2,19 @@
 motion process noise -> plane-fit features -> submap shed -> raytrace
 cleanup -> keyframe finalize.
 
-Counterpart of gem_tpu/mapping/pipeline.py `step` in the configuration the
-JAX package ships on an accelerator: `fuse_backend="stream"` and
-`feature_backend="pallas"`.  The two kernels of that path are the wrapper
-functions `fuse_stream_aggregate` (K1) and `plane_fit_features` (K2): on CPU
-tensors they run their plain PyTorch versions, on CUDA tensors the CUDA
-kernels.
+Counterpart of gem_tpu/mapping/pipeline.py `step`.  `fuse_backend`:
+
+  * "stream" (the default, the configuration the JAX package ships on an
+    accelerator): kernels/fuse_stream.py, whose aggregate pass is kernel
+    K1 and which also owns the `lowest` reduction;
+  * "segment", "sort", "pallas": point processing computes `lowest`, then
+    kernels/fuse.py fuses; "pallas" reduces through kernel K3.
+
+The features are always kernel K2's wrapper, `plane_fit_features`.  As
+the JAX package picks its feature backend from the platform, each kernel
+wrapper picks by device: its plain PyTorch version on CPU tensors, the CUDA
+kernel on CUDA tensors.  There is no calibration-driven "auto": the fuse
+backend is named.
 
 Known sync cost: JAX branches on device scalars with `lax.cond` (jump vs
 move, the raytrace cadence, keyframe finalize, the staging flush).  Here the
@@ -30,12 +37,16 @@ from gem_tpu_torch.core.move import ShedCells, empty_shed, move, re_anchor
 from gem_tpu_torch.core.state import MapState, init_map_state
 from gem_tpu_torch.global_map import submaps as sm
 from gem_tpu_torch.kernels.features import FeatureMaps, plane_fit_features
+from gem_tpu_torch.kernels.fuse import fuse
 from gem_tpu_torch.kernels.fuse_stream import fuse_stream
 from gem_tpu_torch.kernels.pointproc import process_points
 from gem_tpu_torch.kernels.raytrace import raytrace_cleanup
 from gem_tpu_torch.motion.updater import (MotionState, apply_process_noise,
                                           init_motion_state, process_noise)
+from gem_tpu_torch.render.products import orthomosaic
 from gem_tpu_torch.sensors.models import jacobian_ingredients
+
+FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +123,17 @@ def _keyframe_scan(frame: Frame, M: int):
     return pts[:M], sel_ok.sum(dtype=torch.int32)
 
 
-def step(state: PipelineState, frame: Frame, cfg
-         ) -> tuple[PipelineState, StepOutputs]:
+def _check_backend(fuse_backend: str) -> None:
+    if fuse_backend not in FUSE_BACKENDS:
+        raise ValueError(f"fuse_backend {fuse_backend!r} is not one of "
+                         f"{FUSE_BACKENDS}")
+
+
+def step(state: PipelineState, frame: Frame, cfg,
+         fuse_backend: str = "stream") -> tuple[PipelineState, StepOutputs]:
     """One frame.  `state` is consumed (the submap rings update in place,
     see global_map/submaps.py); use the returned state."""
+    _check_backend(fuse_backend)
     track = frame.track_position.to(torch.float32)
     dev = track.device
 
@@ -158,16 +176,21 @@ def step(state: PipelineState, frame: Frame, cfg
     # --- point processing ---------------------------------------------------
     sensor_jac, c_sb_t, p_bm_t, b_skew = jacobian_ingredients(
         frame.r_map_base, frame.r_base_sensor, frame.t_base_sensor)
-    batch, _ = process_points(
+    stream = fuse_backend == "stream"
+    batch, lowest = process_points(
         map_state, cfg, frame.points, frame.intensity, frame.valid,
         frame.transform, frame.t_map_base[2].to(torch.float32), sensor_jac,
         frame.pose_cov[3:, 3:].to(torch.float32), c_sb_t, p_bm_t, b_skew,
-        image=frame.image, colors=frame.colors)
+        image=frame.image, colors=frame.colors, compute_lowest=not stream)
+    map_state = map_state.replace(lowest=lowest)
 
-    # --- fuse (K1) ------------------------------------------------------------
-    map_state = fuse_stream(map_state, cfg, batch,
-                            with_lowest=cfg.enable_lowest,
-                            with_color=cfg.enable_color)
+    # --- fuse (K1 on the stream path, K3 on the pallas path) ----------------
+    if stream:
+        map_state = fuse_stream(map_state, cfg, batch,
+                                with_lowest=cfg.enable_lowest,
+                                with_color=cfg.enable_color)
+    else:
+        map_state = fuse(map_state, cfg, batch, backend=fuse_backend)
 
     # --- motion process noise -----------------------------------------------
     var_update, motion = process_noise(track, frame.pose_quat, frame.pose_cov,
@@ -210,11 +233,15 @@ def step(state: PipelineState, frame: Frame, cfg
     if cfg.enable_submaps and keyframe_h:
         grid_pts = sm.grid_to_points(map_state, cfg, feats.traver)
         pose = torch.cat([track, frame.pose_quat.to(torch.float32)])
-        kf_pts = kf_count = None
+        # SubMap payload (src/ElevationMapping.cpp:666-681): orthomosaic
+        # snapshot + subsampled raw keyframe scan
+        ortho = kf_pts = kf_count = None
+        if cfg.submap.store_ortho:
+            ortho = orthomosaic(map_state, cfg.map, feats.traver)
         if cfg.submap.keyframe_scan_points > 0:
             kf_pts, kf_count = _keyframe_scan(
                 frame, cfg.submap.keyframe_scan_points)
-        submaps = sm.finalize_submap(submaps, grid_pts, pose,
+        submaps = sm.finalize_submap(submaps, grid_pts, pose, ortho=ortho,
                                      kf_points=kf_pts, kf_count=kf_count)
         last_keyframe_xy = track[:2].clone()
 
@@ -235,12 +262,13 @@ def step(state: PipelineState, frame: Frame, cfg
                                   keyframe_due=keyframe_due, metrics=metrics)
 
 
-def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg):
+def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg,
+               fuse_backend: str = "stream"):
     """Run a frame sequence; returns (final_state, dict of (T,) per-frame
     metric tensors: points_valid, cells_fused, shed_count, keyframe)."""
     rows = []
     for frame in frames:
-        state, out = step(state, frame, cfg)
+        state, out = step(state, frame, cfg, fuse_backend)
         rows.append((out.metrics["points_valid"], out.metrics["cells_fused"],
                      out.metrics["shed_count"], out.keyframe_due))
     names = ("points_valid", "cells_fused", "shed_count", "keyframe")
@@ -251,17 +279,20 @@ def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg):
 class ElevationPipeline:
     """Frames in, state + features out, on one device."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device="cpu", fuse_backend: str = "stream"):
         from gem_tpu_torch.config import validate_config
 
         validate_config(cfg)
+        _check_backend(fuse_backend)
         self.cfg = cfg
         self.device = torch.device(device)
+        self.fuse_backend = fuse_backend
         self.state = init_pipeline_state(cfg, self.device)
         self.last_outputs: Optional[StepOutputs] = None
 
     def process(self, frame: Frame) -> StepOutputs:
-        self.state, out = step(self.state, frame, self.cfg)
+        self.state, out = step(self.state, frame, self.cfg,
+                               self.fuse_backend)
         self.last_outputs = out
         return out
 
@@ -300,11 +331,7 @@ def _to_tree(obj):
 def state_from_numpy(tree, device) -> PipelineState:
     """Port PipelineState from any tree with the same field names and NumPy
     leaves (a JAX PipelineState mapped through np.asarray, or the result of
-    `state_to_numpy`).  Orthomosaic rings are not ported, so a tree with
-    stored orthos is refused."""
-    if np.asarray(tree.submaps.orthos).size:
-        raise NotImplementedError("stored orthomosaics are not ported "
-                                  "(ROADMAP Queue 1, render/)")
+    `state_to_numpy`), the orthomosaic ring included."""
     return _from_tree(PipelineState, tree, device)
 
 

@@ -365,15 +365,25 @@ def test_colorize_matches_jax():
     assert N(tok).sum() > 50
 
 
-def test_lowest_reduction_is_not_ported():
-    cfg = benchmark_config(length=16, max_points=8)
+def test_lowest_reduction_single_cell():
+    """The pointproc `lowest` reduction (its parity with gem_tpu is
+    tests/test_torch_fuse.py): eight points in one cell at 0.5 m give that
+    geographic cell h + 3v of the lowest, max-v winner."""
+    cfg = benchmark_config(length=16, max_points=8).replace(
+        body_filter=BodyFilterConfig(mode="none"))
     _, ts = _maps(cfg.map, seed=0)
+    ts = ts.replace(lowest=torch.full((16, 16), 100.0))
     z = torch.zeros(3)
-    with pytest.raises(NotImplementedError):
-        tpp.process_points(ts, cfg, torch.zeros(8, 3), torch.zeros(8),
-                           torch.ones(8, dtype=torch.bool), torch.eye(4),
-                           torch.tensor(0.0), z, torch.eye(3), torch.eye(3),
-                           z, torch.zeros(3, 3), compute_lowest=True)
+    pts = torch.zeros(8, 3)
+    pts[:, 2] = torch.tensor([0.5, 0.7, 0.5, 0.9, 1.0, 0.6, 0.8, 0.5])
+    batch, low = tpp.process_points(
+        ts, cfg, pts, torch.zeros(8), torch.ones(8, dtype=torch.bool),
+        torch.eye(4), torch.tensor(0.0), z, torch.eye(3), torch.eye(3), z,
+        torch.zeros(3, 3), compute_lowest=True)
+    changed = torch.nonzero(low != 100.0)
+    assert changed.shape[0] == 1
+    want = np.float32(0.5) + np.float32(3.0) * N(batch.variance)[0]
+    assert N(low)[tuple(changed[0].tolist())] == want
 
 
 # --- replay -------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The CUDA kernel wrappers: K1 `fuse_stream_aggregate` and K2
-`plane_fit_features`.
+"""The CUDA kernel wrappers: K1 `fuse_stream_aggregate`, K2
+`plane_fit_features` and K3 `segment_stats_sorted`.
 
 This file imports no jax, so on a machine with a card it runs without the
 suite's conftest:
@@ -8,9 +8,9 @@ suite's conftest:
 
 Tests that need the card take the `cuda` fixture and skip without one.  On
 the card each kernel is held against its plain PyTorch version: selection
-outputs bitwise, K1's two gated sums W and WH (f32 sums that the plain
-version adds with atomics in no fixed order) to 1e-5 relative, and K2's
-planes to 1e-5 (slope/traver 1e-3 where normal_z > 1 - 1e-6).
+outputs bitwise, K1's two gated sums W and WH and K3's sums (f32 sums that
+the plain version adds with atomics in no fixed order) to 1e-5 relative,
+and K2's planes to 1e-5 (slope/traver 1e-3 where normal_z > 1 - 1e-6).
 """
 
 import dataclasses
@@ -23,6 +23,7 @@ from gem_tpu_torch.config import benchmark_config
 from gem_tpu_torch.core.state import init_map_state
 from gem_tpu_torch.kernels import features as ft
 from gem_tpu_torch.kernels import fuse_stream as fs
+from gem_tpu_torch.kernels import segment_stats as sst
 from gem_tpu_torch.kernels.pointproc import PointBatch
 
 
@@ -70,17 +71,34 @@ def _k1_args(cfg, m, batch):
             m.variance.reshape(-1), cfg.map)
 
 
+def _k3_args(n, S, device, clustered=True, seed=0, fs_=2, fm=2, fx=1):
+    """Sorted ids (10% pad lanes == S) and (F, n) value columns."""
+    rng = np.random.default_rng(seed)
+    hi = min(S, max(n // 3, 1)) if clustered else S
+    ids = np.where(rng.random(n) < 0.9, rng.integers(0, hi, n), S)
+    ids = np.sort(ids).astype(np.int32)
+    cols = [torch.from_numpy(rng.normal(size=(f, n)).astype(np.float32))
+            for f in (fs_, fm, fx)]
+    return [torch.from_numpy(ids).to(device)] + [c.to(device) for c in cols]
+
+
 def test_cpu_tensors_run_the_plain_versions_uncounted():
     cfg, m, batch = _inputs(16, 256, "cpu")
     n1, n2 = fs.fuse_stream_aggregate.launches, ft.plane_fit_features.launches
+    n3 = sst.segment_stats_sorted.launches
     args = _k1_args(cfg, m, batch)
     assert torch.equal(fs.fuse_stream_aggregate(*args),
                        fs.fuse_stream_aggregate_plain(*args))
     a = ft.plane_fit_features(m, cfg.map)
     b = ft.compute_features(m, cfg.map)
     assert torch.equal(a.slope, b.slope)
+    k3 = _k3_args(512, 300, "cpu")
+    got = sst.segment_stats_sorted(*k3, 300)
+    for x, y in zip(got[:3], sst.segment_stats_sorted_plain(*k3, 300)):
+        assert torch.equal(x, y)
     assert fs.fuse_stream_aggregate.launches == n1
     assert ft.plane_fit_features.launches == n2
+    assert sst.segment_stats_sorted.launches == n3
 
 
 def test_other_devices_are_refused():
@@ -92,6 +110,9 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         ft.plane_fit_features(m.replace(elevation=meta(m.elevation)),
                               cfg.map)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sst.segment_stats_sorted(*[meta(t) for t in _k3_args(64, 32, "cpu")],
+                                 32)
 
 
 @pytest.mark.parametrize("L,P", [(64, 4096), (300, 1 << 17)])
@@ -158,3 +179,55 @@ def test_step_on_card_matches_cpu(cuda):
     torch.testing.assert_close(a.traver.cpu(), b.traver, rtol=0, atol=1e-3)
     assert torch.equal(a.color.cpu(), b.color)
     assert torch.equal(a.start.cpu(), b.start)
+
+
+@pytest.mark.parametrize("n,S,clustered,fsz", [
+    (4096, 4096, True, (2, 2, 1)), (4096, 4096, False, (1, 2, 1)),
+    (1 << 17, 1000 * 1000, False, (2, 1, 1)), (1 << 17, 5000, True,
+                                               (1, 1, 1))])
+def test_k3_matches_plain_on_card(cuda, n, S, clustered, fsz):
+    ids, sv, mv, xv = _k3_args(n, S, cuda, clustered, seed=n % 97, fs_=fsz[0],
+                               fm=fsz[1], fx=fsz[2])
+    before = sst.segment_stats_sorted.launches
+    got = sst.segment_stats_sorted(ids, sv, mv, xv, S)
+    assert sst.segment_stats_sorted.launches == before + 1
+    want = sst.segment_stats_sorted_plain(ids, sv, mv, xv, S)
+    mag = sst.segment_stats_sorted_plain(ids, sv.abs(), mv, xv, S)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    # sums relative to the sum of their terms' magnitudes
+    assert bool(((got[0] - want[0]).abs() <= 1e-5 * mag).all())
+    assert int(got[3]) == int(sst.spill_count(ids, S))
+
+
+def test_k3_rejects_bad_shapes(cuda):
+    ids, sv, mv, xv = _k3_args(256, 64, cuda)
+    with pytest.raises(ValueError, match="must be"):
+        sst.segment_stats_sorted(ids, sv[:, :100], mv, xv, 64)
+    with pytest.raises(ValueError, match="expected contiguous"):
+        sst.segment_stats_sorted(ids, sv.double(), mv, xv, 64)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "segment", "sort"])
+def test_fuse_backends_on_card_match_cpu(cuda, backend):
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+
+    cfg = benchmark_config(length=64, max_points=4096)
+    gpu = ElevationPipeline(cfg, device=cuda, fuse_backend=backend)
+    cpu = ElevationPipeline(cfg, device="cpu", fuse_backend=backend)
+    before = sst.segment_stats_sorted.launches
+    for f, _, _ in synthetic_frames(cfg, 5, n_points=4000, speed=0.4,
+                                    seed=2, max_range=3.0):
+        cpu.process(f)
+        gpu.process(type(f)(**{k: None if v is None else v.to(cuda)
+                               for k, v in vars(f).items()}))
+    launches = sst.segment_stats_sorted.launches - before
+    assert launches == (25 if backend == "pallas" else 0)
+    a, b = gpu.state.map, cpu.state.map
+    for key in ("elevation", "variance"):
+        torch.testing.assert_close(getattr(a, key).cpu(), getattr(b, key),
+                                   rtol=0, atol=1e-4)
+    assert torch.equal(a.lowest.cpu(), b.lowest)
+    torch.testing.assert_close(a.traver.cpu(), b.traver, rtol=0, atol=1e-3)
+    assert torch.equal(a.color.cpu(), b.color)

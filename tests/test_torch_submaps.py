@@ -131,6 +131,22 @@ def test_grid_to_points_matches_jax():
     _assert_same(a, b, "grid")
 
 
-def test_ortho_store_is_not_ported():
-    with pytest.raises(NotImplementedError, match="render"):
-        tsm.init_store(_cfg(0, store_ortho=True), "cpu")
+def test_ortho_ring_matches_jax():
+    """The orthomosaic ring: (K, L, L, 3) uint8 like JAX's, and finalize
+    writes the keyframe's ortho into the next slot."""
+    cfg = _cfg(0, store_ortho=True)
+    store = tsm.init_store(cfg, "cpu")
+    jstore = jsm.init_store(cfg)
+    assert store.orthos.dtype == torch.uint8
+    assert tuple(store.orthos.shape) == jstore.orthos.shape == (3, 16, 16, 3)
+    rng = np.random.default_rng(3)
+    ortho = rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)
+    pts = tsm.empty_buffer((16 * 16,), "cpu")
+    jpts = jsm.empty_buffer((16 * 16,))
+    pose = np.array([1, 2, 0, 1, 0, 0, 0], np.float32)
+    a = jsm.finalize_submap(jstore, jpts, jnp.asarray(pose),
+                            ortho=jnp.asarray(ortho))
+    b = tsm.finalize_submap(store, pts, torch.from_numpy(pose),
+                            ortho=torch.from_numpy(ortho))
+    np.testing.assert_array_equal(b.orthos.numpy(), np.asarray(a.orthos))
+    assert b.orthos[0].sum() > 0 and int(b.orthos[1:].sum()) == 0
