@@ -22,8 +22,16 @@ Phases, one line each (times from CUDA events after a warm-up):
      accuracy checks: the stream path (K1, K2), then the pallas path (K3,
      K2);
   9. the CLI in-process: `run` at the benchmark preset with the pallas
-     backend and every product, a resume from its checkpoint, and the
-     kitti preset (orthomosaics stored) with the segment backend.
+     backend and every product, a resume from its checkpoint (with the
+     .bt octomap export), and the kitti preset (orthomosaics stored, the
+     npz pyramid) with the segment backend; then the global-map path,
+     `run --loop-demo --save-octomap x.ot --dense --save-submaps` with the
+     stream backend (K1 and K2 launches counted from 0), and `selftest`;
+ 10. the global map at the flagship's own ring (64 slots x 32768 points):
+     a loop-closure re-stitch, densify at orders 2 and 5 on one slot, the
+     (512, 512, 128) voxel pyramid of phase 8's global cloud with its .bt
+     and .ot files, and the DiSCO signatures of all 64 slots, each on the
+     card and on the CPU from the same inputs, with both times.
 Then one JSON line of per-kernel results, the nvidia-smi line again, and
 the last line {"ok": true, "device": {...}}.  Any failure raises: the
 script exits non-zero and prints no result.  It imports no jax.
@@ -31,8 +39,11 @@ script exits non-zero and prints no result.  It imports no jax.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -435,15 +446,23 @@ def phase_cli(dev):
         fail_unless(len(rows) == 30 and rows[-1]["cells_fused"] > 0,
                     "cli: metrics stream")
         fail_unless(cli([*bench, "--frames", "5", "--resume", p("ck.npz"),
-                         "--checkpoint", p("ck2.npz")]) == 0,
-                    "cli: resume failed")
+                         "--checkpoint", p("ck2.npz"), "--save-octomap",
+                         p("x.bt")]) == 0, "cli: resume failed")
+        bt_leaves = octree_leaves(p("x_road.bt")) \
+            + octree_leaves(p("x_obstacle.bt"))
+        fail_unless(bt_leaves > 0, "cli: empty .bt octomaps")
         idx = (int(np.load(p("ck.npz"))["frame_idx"]),
                int(np.load(p("ck2.npz"))["frame_idx"]))
         fail_unless(idx == (30, 35), f"cli: frame_idx {idx} != (30, 35)")
         fail_unless(cli(["run", "--device", dev.type, "--preset", "kitti",
                          "--fuse-backend", "segment", "--frames", "30",
-                         "--publish-submaps", p("records")]) == 0,
-                    "cli: kitti run failed")
+                         "--publish-submaps", p("records"), "--save-octomap",
+                         p("x.npz")]) == 0, "cli: kitti run failed")
+        levels = np.load(p("x.npz"))
+        fail_unless(levels["road_l0_occ"].shape[2] == 128
+                    and levels["road_l0_occ"].any()
+                    and levels["obstacle_l2_occ"].shape[2] == 32,
+                    "cli: npz pyramid")
         recs = sorted(os.listdir(p("records")))
         fail_unless(len(recs) >= 1, "cli: no submap record")
         rec = np.load(os.path.join(p("records"), recs[0]))
@@ -452,9 +471,307 @@ def phase_cli(dev):
                     and rec["points"].shape[0] > 0,
                     f"cli: record ortho {ortho.shape} {ortho.dtype}")
     print(f"phase 9 cli: ok benchmark/pallas 30 frames map_points={n_map} "
-          f"pngs={L}x{L}x3 resumed_frame_idx={idx[1]} kitti/segment "
-          f"records={len(recs)} ortho={ortho.shape} "
+          f"pngs={L}x{L}x3 resumed_frame_idx={idx[1]} bt_leaves={bt_leaves} "
+          f"kitti/segment records={len(recs)} ortho={ortho.shape} "
+          f"npz_levels={len(levels.files)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def octree_leaves(path):
+    """Occupied leaves of a .bt or .ot file, read back by the shared reader."""
+    from gem_tpu_torch.shared import load
+
+    octo = load("global_map/octomap_io.py")
+    read = octo.read_bt if path.endswith(".bt") else octo.read_ot
+    return len(read(path)[1])
+
+
+def run_cli(argv):
+    """`python -m gem_tpu_torch <argv>` in-process: (exit code, stdout)."""
+    from gem_tpu_torch.io.cli import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(argv)
+    return rc, buf.getvalue()
+
+
+def phase_global_map_cli(dev):
+    """This slice's path through the CLI on the card: 40 kitti-preset frames
+    at 1 m/frame (three submaps) with the stream backend, every launch count
+    set to 0 just before and read just after; the loop-demo re-stitch, the
+    .ot octomap export and densified submaps; then `selftest`.  (The kitti
+    preset, because a densified submap is a 12.8 m grid anchored at its
+    slot's minimum x and y, which the benchmark preset's 100 m window
+    leaves empty.)"""
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        rc, out = run_cli(["run", "--device", dev.type, "--preset",
+                           "kitti", "--frames", "40", "--speed", "1.0",
+                           "--loop-demo", "--save-map", p("map.pcd"),
+                           "--save-octomap", p("x.ot"), "--dense",
+                           "--save-submaps", p("subs")])
+        launches = {k: w.launches for k, w in wrappers.items()}
+        fail_unless(rc == 0, "global-map cli: run failed")
+        fail_unless(launches == {"fuse_stream_aggregate": 40,
+                                 "plane_fit_features": 40,
+                                 "segment_stats_sorted": 0},
+                    f"global-map cli: launch counts {launches}")
+        stats = json.loads(out.split("loop closure: ")[1].splitlines()[0])
+        fail_unless(stats["n_corrected"] >= 2 and stats["n_pairs"] > 0
+                    and stats["n_cells_fused"] > 0,
+                    f"global-map cli: loop closure {stats}")
+        n_road, n_obs = (int(v) for v in re.search(
+            r"road (\d+) / obstacle (\d+) voxels", out).groups())
+        leaves = (octree_leaves(p("x_road.ot")),
+                  octree_leaves(p("x_obstacle.ot")))
+        fail_unless(leaves == (n_road, n_obs) and n_road > 0,
+                    f"global-map cli: .ot leaves {leaves} vs voxels "
+                    f"{(n_road, n_obs)}")
+        n_before = pcd_points(p("map.pcd.before_loop.pcd"))
+        n_after = pcd_points(p("map.pcd"))
+        dense_pts = [pcd_points(os.path.join(p("subs"), f))
+                     for f in sorted(os.listdir(p("subs")))]
+        fail_unless(n_before > 0 and n_after > 0 and len(dense_pts) == 3
+                    and min(dense_pts) > 5000,
+                    f"global-map cli: maps {n_before}/{n_after}, dense "
+                    f"submaps of {dense_pts} points")
+        rc, out = run_cli(["selftest", "--device", dev.type])
+        rep = json.loads(out.strip().splitlines()[-1])
+        fail_unless(rc == 0 and rep["healthy"], f"selftest: {rep}")
+    print(f"phase 9 global-map cli kitti/stream 40 frames: ok "
+          f"launches={launches} "
+          f"loop_closure={json.dumps(stats)} octomap_ot_leaves={leaves} "
+          f"map_points_before/after={n_before}/{n_after} "
+          f"dense_submap_points={dense_pts} "
+          f"selftest={json.dumps(rep)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def terrain(x, y):
+    """The seeded world of phase 10: smooth relief, analytic."""
+    return (0.5 * np.sin(x / 7.0) + 0.4 * np.cos(y / 9.0)
+            + 0.05 * np.sin((x + y) / 3.0))
+
+
+def global_map_store(cfg, device):
+    """The flagship ring filled through finalize_submap: 64 slots whose
+    centers lie on a 60 m loop (radius ~9.5 m, so every center is inside
+    every other's 25 m overlap radius and the cap of 8 pairs per submap
+    binds), each holding a 181 x 181-cell patch (32761 of 32768 points) at
+    cell centers around its center, z = terrain + 0.01 * slot, variance in
+    (0, 1).  Returns (store, poses)."""
+    from gem_tpu_torch.global_map import submaps as sm
+
+    K, C = cfg.submap.max_submaps, cfg.submap.capacity
+    res = cfg.map.resolution
+    rng = np.random.default_rng(0)
+    store = sm.init_store(cfg, device)
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 3] = 1.0
+    n = int(np.sqrt(C))
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        cx, cy = 60 / (2 * np.pi) * np.cos(a), 60 / (2 * np.pi) * np.sin(a)
+        poses[k, :2] = cx, cy
+        gx, gy = np.meshgrid(np.round(cx / res) + np.arange(n) - n // 2,
+                             np.round(cy / res) + np.arange(n) - n // 2,
+                             indexing="ij")
+        x = np.zeros(C, np.float32)
+        y = np.zeros(C, np.float32)
+        x[:n * n] = ((gx.reshape(-1) + 0.5) * res).astype(np.float32)
+        y[:n * n] = ((gy.reshape(-1) + 0.5) * res).astype(np.float32)
+        f = {"x": x, "y": y,
+             "z": (terrain(x, y) + 0.01 * k).astype(np.float32),
+             "variance": rng.uniform(0.01, 0.99, C).astype(np.float32),
+             "intensity": rng.random(C).astype(np.float32),
+             "traver": rng.random(C).astype(np.float32),
+             "color": rng.integers(0, 1 << 24, C).astype(np.int32),
+             "valid": np.arange(C) < n * n}
+        buf = sm.PointBuffer(**{key: torch.from_numpy(v).to(device)
+                                for key, v in f.items()})
+        store = sm.finalize_submap(store, buf,
+                                   torch.from_numpy(poses[k]).to(device))
+    return store, poses
+
+
+def timed(fn, sync):
+    """(result, milliseconds) of one call of fn, ending in a sync."""
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_global_map(dev, cloud):
+    """Phase 10: the global-map modules at the flagship's own ring, each on
+    the card and on the CPU (the plain PyTorch path) from the same
+    inputs."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.global_map.densify import densify_submap
+    from gem_tpu_torch.global_map.loop_closure import apply_loop_closure
+    from gem_tpu_torch.global_map.place_recognition import (disco_signature,
+                                                            match_signatures,
+                                                            polar_bev)
+    from gem_tpu_torch.global_map.pyramid import build_pyramid
+    from gem_tpu_torch.global_map.submaps import PointBuffer
+    from gem_tpu_torch.io.cli import octomap_grid, save_octomap
+
+    cfg = benchmark_config()
+    K, C = cfg.submap.max_submaps, cfg.submap.capacity
+    res = cfg.map.resolution
+    where = {"card": dev, "cpu": torch.device("cpu")}
+    sync = dev.type == "cuda"
+
+    def on_both(fn):
+        """{side: (fn(side), ms)}: the card's call after one warm-up."""
+        fn("card")
+        if sync:
+            torch.cuda.synchronize()
+        return {side: timed(lambda: fn(side), sync and side == "card")
+                for side in where}
+
+    def slot(store, k):
+        return PointBuffer(**{f: getattr(store.slots, f)[k] for f in (
+            "x", "y", "z", "variance", "intensity", "traver", "color",
+            "valid")})
+
+    stores = {}
+    for side, d in where.items():
+        stores[side], poses = global_map_store(cfg, d)
+    # drift-corrected poses: every keyframe but the anchor moves by whole
+    # cells, so every point stays at a cell center
+    rng = np.random.default_rng(1)
+    opt = poses.copy()
+    opt[1:, :2] += res * rng.integers(-3, 4, (K - 1, 2))
+
+    # --- loop-closure event
+    lc = on_both(lambda side: apply_loop_closure(stores[side], cfg, opt))
+    (new_d, st_d), lc_ms = lc["card"]
+    (new_c, st_c), lc_cpu_ms = lc["cpu"]
+    fail_unless(st_d == st_c, f"global map: loop stats {st_d} vs {st_c}")
+    fail_unless(st_d["n_corrected"] == K and st_d["n_pairs"] == 8 * K
+                and st_d["n_cells_fused"] > K * C // 10,
+                f"global map: loop stats {st_d}")
+    lc_err = {key: float((getattr(new_d.slots, key).cpu()
+                          - getattr(new_c.slots, key)).abs().max())
+              for key in ("x", "y", "z", "variance")}
+    fail_unless(lc_err["x"] == 0.0 and lc_err["y"] == 0.0
+                and lc_err["z"] <= 1e-5 and lc_err["variance"] <= 1e-5,
+                f"global map: loop closure card vs cpu {lc_err}")
+
+    # --- densify slot 0 (G = 256): the CLI's call at orders 2 and 5, card
+    # vs CPU; then order 5 at the points' own spacing, held to the analytic
+    # terrain on interior cells (the JAX suite's 3e-4 m bound)
+    dens = {}
+    for order in (2, 5):
+        kw = dict(base_resolution=res, upsample=2, grid_size=256, order=order)
+        out = on_both(lambda side: densify_submap(slot(stores[side], 0), **kw))
+        (dd, t_d), (dc, t_c) = out["card"], out["cpu"]
+        v = dc["valid"]
+        fail_unless(bool(torch.equal(dd["valid"].cpu(), v))
+                    and int(v.sum()) > 10000,
+                    f"densify order {order}: valid masks differ")
+        zd = dd["z"].cpu()[v]
+        dz = float((zd - dc["z"][v]).abs().max())
+        fail_unless(dz <= 1e-4 and bool(torch.isfinite(zd).all()),
+                    f"densify order {order}: card vs cpu z {dz}")
+        dens[order] = (dz, t_d, t_c, int(v.sum()))
+    s0 = slot(stores["cpu"], 0)
+    origin5 = (float(s0.x[s0.valid].min()) - res / 2,
+               float(s0.y[s0.valid].min()) - res / 2)
+    n = int(np.sqrt(C))
+    fit_err = {}
+    for side in where:
+        o = densify_submap(slot(stores[side], 0), base_resolution=res,
+                           upsample=1, grid_size=256, origin=origin5,
+                           order=5)
+        zz = o["z"].cpu().numpy().reshape(256, 256)
+        truth = terrain(o["x"].cpu().numpy(),
+                        o["y"].cpu().numpy()).reshape(256, 256)
+        fit_err[side] = float(np.abs(zz - truth)[3:n - 3, 3:n - 3].max())
+    fail_unless(max(fit_err.values()) < 3e-4,
+                f"densify order 5 vs the analytic terrain {fit_err}")
+
+    # --- voxel pyramid + octomap files of phase 8's global cloud
+    origin, vres, shape = octomap_grid(cloud, cfg)
+    fail_unless(shape == (512, 512, 128), f"pyramid: grid {shape}")
+    pts = {side: {k: torch.from_numpy(cloud[k]).to(d)
+                  for k in ("x", "y", "z", "color", "traver", "valid")}
+           for side, d in where.items()}
+    pyr = on_both(lambda side: build_pyramid(
+        *(pts[side][k] for k in ("x", "y", "z", "color", "traver", "valid")),
+        origin=origin, base_resolution=vres, shape=shape,
+        travers_threshold=cfg.traversability_threshold))
+    (road_d, obs_d), pyr_ms = pyr["card"]
+    (road_c, obs_c), pyr_cpu_ms = pyr["cpu"]
+    for a, b in zip(road_d + obs_d, road_c + obs_c):
+        fail_unless(bool(torch.equal(a.occupancy.cpu(), b.occupancy))
+                    and bool(torch.equal(a.color.cpu(), b.color)),
+                    "pyramid: card and cpu grids differ")
+    n_road = int(road_c[0].occupancy.sum())
+    n_obs = int(obs_c[0].occupancy.sum())
+    fail_unless(n_road > 1000, f"pyramid: {n_road} road voxels")
+    octo_ms = {}
+    with tempfile.TemporaryDirectory() as d:
+        for ext in (".bt", ".ot"):
+            files = {}
+            for side, (road, obs) in (("card", (road_d, obs_d)),
+                                      ("cpu", (road_c, obs_c))):
+                files[side], octo_ms[side + ext] = timed(
+                    lambda: save_octomap(os.path.join(d, side + ext), road,
+                                         obs), False)
+            for (name, pd, _), (_, pc, _) in zip(files["card"],
+                                                 files["cpu"]):
+                with open(pd, "rb") as f1, open(pc, "rb") as f2:
+                    fail_unless(f1.read() == f2.read(),
+                                f"octomap {name}{ext}: card and cpu files "
+                                f"differ")
+                want = n_road if name == "road" else n_obs
+                fail_unless(octree_leaves(pd) == want,
+                            f"octomap {name}{ext}: leaves != voxels")
+
+    # --- DiSCO signatures of all 64 slots (after the re-stitch)
+    new = {"card": new_d, "cpu": new_c}
+    centers = [tuple(opt[k, :2].tolist()) for k in range(K)]
+    sigs = on_both(lambda side: [disco_signature(slot(new[side], k),
+                                                 centers[k])
+                                 for k in range(K)])
+    sig_d, sig_ms = sigs["card"]
+    sig_c, sig_cpu_ms = sigs["cpu"]
+    # atan2 differs by an ULP between the card and the CPU, so a point on a
+    # sector edge may change bins: hold the polar images to 99.9% of bins
+    # and the signatures to cosine similarity 0.9999
+    bins_equal = min(
+        float((polar_bev(slot(new_d, k), centers[k], 25.0).cpu()
+               == polar_bev(slot(new_c, k), centers[k], 25.0))
+              .float().mean()) for k in range(K))
+    worst_cos = min(float(match_signatures(a.cpu(), b))
+                    for (a, _, _), (b, _, _) in zip(sig_d, sig_c))
+    sig_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                  for (a, _, _), (b, _, _) in zip(sig_d, sig_c))
+    fail_unless(bins_equal >= 0.999 and worst_cos >= 0.9999,
+                f"signatures: bins equal {bins_equal}, cosine {worst_cos}")
+    print(f"phase 10 global map K={K} C={C}: ok "
+          f"loop_closure={json.dumps(st_d)} card_vs_cpu_max_abs_err={lc_err}"
+          f" event_ms={lc_ms:.3f} cpu_event_ms={lc_cpu_ms:.3f}; densify "
+          f"G=256 " + " ".join(
+              f"order{o}: valid={v} max_abs_dz={dz:.3g} ms={t_d:.3f} "
+              f"cpu_ms={t_c:.3f}" for o, (dz, t_d, t_c, v) in dens.items())
+          + f" order5_vs_terrain_max={fit_err}; pyramid {shape} "
+          f"road={n_road} obstacle={n_obs} bitwise ms={pyr_ms:.3f} "
+          f"cpu_ms={pyr_cpu_ms:.3f} octomap_write_ms="
+          f"{json.dumps({k: round(v, 3) for k, v in octo_ms.items()})} "
+          f"bt_ot_bytes=identical; signatures ms_per_slot={sig_ms / K:.4f} "
+          f"cpu_ms_per_slot={sig_cpu_ms / K:.4f} min_cosine={worst_cos:.7f}"
+          f" max_rel_err={sig_err:.3g} bev_bins_equal={bins_equal:.5f}",
+          flush=True)
 
 
 def kernel_wrappers():
@@ -529,6 +846,8 @@ def phase_flagship(dev, backend, frames, world):
                 f"flagship: rmse {rmse} / median {med} vs ground truth")
     step_ms = statistics.median(times[5:])
     peak = torch.cuda.max_memory_allocated()
+    from gem_tpu_torch.io.cli import _global_cloud
+    cloud = _global_cloud(pipe, cfg)
     print(f"phase 8 flagship {backend} L=1000 P=131072 raytrace_every=1 "
           f"{n_frames} frames: ok step_ms_median(5..30)={step_ms:.3f} "
           f"step_ms_min={min(times[5:]):.3f} first_frame_ms={times[0]:.1f} "
@@ -536,7 +855,7 @@ def phase_flagship(dev, backend, frames, world):
           f"num_submaps={int(st.submaps.num_submaps)} rmse_vs_truth={rmse:.5f}"
           f" median_abs_err={med:.5f} launches={launches} "
           f"max_memory_allocated={peak}", flush=True)
-    return launches, step_ms
+    return launches, step_ms, cloud
 
 
 def main():
@@ -571,10 +890,12 @@ def main():
                                         n_points=131072, speed=0.5, seed=0,
                                         device=dev):
         frames.append(f)
-    launches, _ = phase_flagship(dev, "stream", frames, world)
-    launches_pallas, _ = phase_flagship(dev, "pallas", frames, world)
+    launches, _, cloud = phase_flagship(dev, "stream", frames, world)
+    launches_pallas, _, _ = phase_flagship(dev, "pallas", frames, world)
     del frames
     phase_cli(dev)
+    phase_global_map_cli(dev)
+    phase_global_map(dev, cloud)
 
     k1_main = next(r for r in k1 if r[0] == "131k")
     k3_main = next(r for r in k3 if r[0] == "131k")

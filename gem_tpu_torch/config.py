@@ -15,12 +15,16 @@ _cfg = load("config.py")
 PipelineConfig = _cfg.PipelineConfig
 MapConfig = _cfg.MapConfig
 CameraConfig = _cfg.CameraConfig
+SensorConfig = _cfg.SensorConfig
+BodyFilterConfig = _cfg.BodyFilterConfig
+SubmapConfig = _cfg.SubmapConfig
 benchmark_config = _cfg.benchmark_config
 kitti_config = _cfg.kitti_config
 yq_config = _cfg.yq_config
 config_from_yaml = _cfg.config_from_yaml
 validate_config = _cfg.validate_config
 
-__all__ = ["PipelineConfig", "MapConfig", "CameraConfig", "benchmark_config",
+__all__ = ["PipelineConfig", "MapConfig", "CameraConfig", "SensorConfig",
+           "BodyFilterConfig", "SubmapConfig", "benchmark_config",
            "kitti_config", "yq_config", "config_from_yaml",
            "validate_config"]

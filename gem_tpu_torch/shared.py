@@ -1,8 +1,8 @@
 """The JAX-free modules of gem_tpu, shared without importing jax.
 
 `gem_tpu/config.py`, `io/pcd.py`, `utils/image.py`, `msgs.py`,
-`sensors/catalog.py` and `native/__init__.py` import only the standard
-library and NumPy, but importing any of them as `gem_tpu.x` runs
+`sensors/catalog.py`, `global_map/octomap_io.py` and `native/__init__.py`
+import only the standard library and NumPy, but importing any of them as `gem_tpu.x` runs
 `gem_tpu/__init__.py`, which imports jax.  `load` executes one such file by
 path instead: one source of truth, no copy.  While a file runs, its own
 `from gem_tpu.config import ...` resolves to the shared config module.

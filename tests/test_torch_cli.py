@@ -1,11 +1,15 @@
-"""`python -m gem_tpu_torch run` (gem_tpu_torch/io/cli.py) on the CPU: the
-kitti preset writes every ported product, a checkpoint resumes, the
-unported flags fail before the first frame, and a checkpoint written by
-`python -m gem_tpu run --platform cpu` resumes in the port and the reverse.
+"""`python -m gem_tpu_torch` (gem_tpu_torch/io/cli.py) on the CPU: the kitti
+preset writes every product, a checkpoint resumes, the global-map flags
+(--dense, --save-octomap, --keyframes, --loop-demo) run and agree with
+`python -m gem_tpu run --platform cpu`, a checkpoint written by either CLI
+resumes in the other, `selftest` and `viz` work, and the CLI process imports
+no jax.
 """
 
+import importlib.util
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -74,13 +78,96 @@ def test_run_kitti_writes_every_product(tmp_path, capsys):
     assert int(np.load(p("ck2.npz"))["frame_idx"]) == 14
 
 
+def _keyframes(path, n):
+    """A KeyframesRecord of n optimised poses: keyframe k shifted by
+    (0.2 k, -0.1 k) m."""
+    from gem_tpu.msgs import KeyframesRecord
+
+    poses = np.zeros((n, 7), np.float32)
+    poses[:, 0] = 0.2 * np.arange(n)
+    poses[:, 1] = -0.1 * np.arange(n)
+    poses[:, 3] = 1.0
+    KeyframesRecord(ids=np.arange(n, dtype=np.int32), poses=poses).save(path)
+    return path
+
+
 @pytest.mark.parametrize("flags", [["--dense"], ["--save-octomap", "o.npz"],
                                    ["--keyframes", "k.npz"],
                                    ["--loop-demo"]])
-def test_unported_flags_fail_before_the_first_frame(flags, capsys):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tcli.main(["run", "--device", "cpu", "--frames", "1", *flags])
-    assert "processed" not in capsys.readouterr().out
+def test_global_map_flags_run_on_the_cpu(flags, tmp_path, capsys):
+    """Each flag of the global-map slice runs on the CPU: densified submap
+    PCDs, the pyramid npz, and the loop-closure re-stitch from a record or
+    the demo drift."""
+    flags = [str(tmp_path / f) if f.endswith(".npz") else f for f in flags]
+    if "--keyframes" in flags:
+        _keyframes(flags[1], 3)
+    subs = str(tmp_path / "subs")
+    assert tcli.main(["run", "--device", "cpu", "--frames", "24", "--speed",
+                      "1.0", "--save-submaps", subs, "--save-map",
+                      str(tmp_path / "map.pcd"), *flags]) == 0
+    out = capsys.readouterr().out
+    assert "submaps=2" in out
+    if "--dense" in flags:
+        assert "2 submaps (densified)" in out
+        assert _pcd_points(os.path.join(subs, "0.pcd")) > 5000
+    if "--save-octomap" in flags:
+        d = np.load(flags[1])
+        assert d["road_l0_occ"].shape[2] == 128 and d["road_l0_occ"].any()
+        assert d["obstacle_l2_occ"].shape == (d["road_l0_occ"].shape[0] // 4,
+                                              d["road_l0_occ"].shape[1] // 4,
+                                              32)
+    if "--keyframes" in flags or "--loop-demo" in flags:
+        stats = json.loads(out.split("loop closure: ")[1].splitlines()[0])
+        assert stats["n_corrected"] == 2 and stats["n_pairs"] == 2
+        assert stats["n_cells_fused"] > 1000
+        assert _pcd_points(str(tmp_path / "map.pcd.before_loop.pcd")) > 1000
+
+
+def _loop_stats_and_voxels(out):
+    stats = json.loads(out.split("loop closure: ")[1].splitlines()[0])
+    road, obs = re.search(r"road (\d+) / obstacle (\d+) voxels", out).groups()
+    return stats, int(road), int(obs)
+
+
+def test_loop_demo_octomap_agrees_with_the_jax_cli(tmp_path, capsys):
+    """`run --loop-demo --save-octomap o.bt` in both packages: the same pair
+    list and round schedule, road/obstacle voxel counts within 1%.  The yq
+    preset over 24 frames closes two submaps, so the demo drift moves them
+    by whole cells and no cell key sits on a ceil boundary."""
+    common = ["--preset", "yq", "--frames", "24", "--speed", "1.0",
+              "--fuse-backend", "segment", "--loop-demo"]
+    assert jcli.main(["run", "--platform", "cpu", *common, "--save-octomap",
+                      str(tmp_path / "j.bt")]) == 0
+    j = _loop_stats_and_voxels(capsys.readouterr().out)
+    assert tcli.main(["run", "--device", "cpu", *common, "--save-octomap",
+                      str(tmp_path / "t.bt")]) == 0
+    t = _loop_stats_and_voxels(capsys.readouterr().out)
+    assert t[0]["n_pairs"] == j[0]["n_pairs"] > 0
+    assert t[0]["n_rounds"] == j[0]["n_rounds"]
+    for a, b in zip(t[1:], j[1:]):
+        assert abs(a - b) <= 0.01 * b, (t, j)
+    for name in ("road", "obstacle"):
+        assert os.path.getsize(tmp_path / f"t_{name}.bt") > 100
+
+
+def test_selftest_on_the_cpu(capsys):
+    assert tcli.main(["selftest", "--device", "cpu"]) == 0
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rep["healthy"] and rep["fuse_backend"] == "stream"
+    assert rep["fused_cells"] > 100 and rep["rmse_vs_cpu_m"] < 0.05
+
+
+def test_viz_renders_a_pcd_and_needs_matplotlib(tmp_path, monkeypatch,
+                                                capsys):
+    assert tcli.main(["run", "--device", "cpu", "--frames", "2",
+                      "--save-map", str(tmp_path / "m.pcd")]) == 0
+    png = str(tmp_path / "v.png")
+    if importlib.util.find_spec("matplotlib") is not None:
+        assert tcli.main(["viz", str(tmp_path / "m.pcd"), "--out", png]) == 0
+        assert open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit, match="needs matplotlib"):
+        tcli.main(["viz", str(tmp_path / "m.pcd"), "--out", png])
 
 
 def test_device_cuda_without_a_card_is_an_error():
@@ -88,6 +175,8 @@ def test_device_cuda_without_a_card_is_an_error():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["run", "--device", "cuda", "--frames", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["selftest", "--device", "cuda"])
 
 
 def test_checkpoints_cross_between_the_two_clis(tmp_path, capsys):
@@ -116,3 +205,22 @@ def test_cli_process_imports_no_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_global_map_paths_import_no_jax(tmp_path):
+    """The loop closure, octomap and densify paths load gem_tpu's JAX-free
+    modules (msgs, octomap_io, pcd) by path, never as gem_tpu.*."""
+    d = str(tmp_path)
+    code = ("import sys; from gem_tpu_torch.io.cli import main;"
+            f" main(['run', '--device', 'cpu', '--frames', '24',"
+            f" '--speed', '1.0', '--loop-demo', '--dense',"
+            f" '--save-submaps', {d + '/s'!r},"
+            f" '--save-octomap', {d + '/o.ot'!r}]);"
+            " assert 'jax' not in sys.modules, 'jax imported';"
+            " assert 'gem_tpu' not in sys.modules; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert "loop closure:" in out.stdout
+    assert os.path.getsize(os.path.join(d, "o_road.ot")) > 100

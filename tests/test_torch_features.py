@@ -3,11 +3,16 @@ module of kernel K2) against gem_tpu's Pallas stencil in interpret mode and
 its XLA version.
 
 Moments are formed op for op like the reference, so neighbour counts and
-roughness agree bitwise.  normal_z/slope/traver go through cos and acos,
-whose CPU implementations differ by an ULP between XLA and PyTorch (and the
-Pallas kernel uses a polynomial acos, kernels/mathx.py).  The normal is the
-eigenvector of the smallest eigenvalue, which moves by ~eps * lambda_max /
-gap for an eigenvalue gap `gap`, so the bound per cell is
+roughness agree bitwise.  normal_z/slope/traver differ in the last bits for
+three reasons, none of them a fault of the port (the two tests at the end
+show each): XLA's CPU code generator contracts `c + a * b` into one FMA
+inside a jitted fusion (the Sxz/Syz/Szz moment sums, p2, detb, the
+eigenvalue), where PyTorch rounds the product first; XLA's acos and
+PyTorch's differ by up to 2 ULP on the same input, and their cos by up to
+1 ULP (the Pallas kernel uses yet another, polynomial acos,
+kernels/mathx.py).  The normal is the eigenvector of the smallest
+eigenvalue, which moves by ~eps * lambda_max / gap for an eigenvalue gap
+`gap`, so the bound per cell is
 max(1e-5, 8e-6 / (gap / lambda_max)) on normal_z (~130 ULP
 of lambda_max) — the JAX suite's 1e-5
 wherever the fit is well conditioned — divided by sqrt(1 - normal_z^2) for
@@ -165,3 +170,38 @@ def test_smallest_eig_normal_of_a_tilted_plane():
     want = 1.0 / np.sqrt(1 + 0.3 ** 2 + 0.2 ** 2)
     assert bool(ok) and abs(float(nz) - want) < 1e-5
     assert abs(float(slope) - np.arccos(want)) < 1e-4
+
+
+def test_reference_jit_contracts_multiply_add_into_fma():
+    """The first op where the two packages part: in a jitted fusion XLA's CPU
+    code computes `c + a * b` with one rounding (an FMA), bitwise the exact
+    product-sum rounded once; PyTorch rounds a * b first, as written."""
+    rng = np.random.default_rng(0)
+    a, b, c = (rng.normal(size=1 << 14).astype(np.float32) for _ in range(3))
+    fused = np.asarray(jax.jit(lambda a, b, c: c + a * b)(a, b, c))
+    exact_fma = (a.astype(np.float64) * b + c).astype(np.float32)
+    got = (torch.from_numpy(c) + torch.from_numpy(a)
+           * torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(fused, exact_fma)
+    np.testing.assert_array_equal(got, c + a * b)
+    assert (fused != got).mean() > 0.05
+
+
+@pytest.mark.parametrize("t_op,np_op,lo,hi,ulp_each,ulp_apart", [
+    ("acos", "arccos", -1.0, 1.0, 2.0, 2.0),     # r of the eigensolver
+    ("cos", "cos", 2.0944, 3.1416, 1.0, 1.0),    # phi + 2 pi / 3
+])
+def test_acos_and_cos_differ_by_ulps_on_the_same_input(t_op, np_op, lo, hi,
+                                                       ulp_each, ulp_apart):
+    """Both libraries are faithful (within `ulp_each` of the float64 value)
+    but not identical: fed the same f32 input they land up to `ulp_apart`
+    ULP apart, which an ill-conditioned plane fit amplifies."""
+    x = np.random.default_rng(1).uniform(lo, hi, 1 << 14).astype(np.float32)
+    j = np.asarray(jax.jit(getattr(jnp, np_op))(x)).astype(np.float64)
+    t = getattr(torch, t_op)(torch.from_numpy(x)).numpy().astype(np.float64)
+    ref = getattr(np, np_op)(x.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert (np.abs(j - ref) / ulp).max() <= ulp_each
+    assert (np.abs(t - ref) / ulp).max() <= ulp_each
+    apart = np.abs(j - t) / ulp
+    assert 0 < apart.max() <= ulp_apart and (apart > 0).mean() > 0.01
