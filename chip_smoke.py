@@ -1,18 +1,28 @@
 """Drive the PyTorch port's mapping pipeline and CLI on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old DIR]
 
-Phases, one line each (times from CUDA events after a warm-up):
+Phases, one line each (times from CUDA events after a warm-up; a kernel's
+own time is its device time, the call repeated in one CUDA graph so the
+host's launch overhead is left out):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from gem_tpu_torch/csrc (one nvcc per source,
      in parallel);
   3. K1 (fuse_stream_aggregate) vs its plain PyTorch version on the card,
      at the L=1000 flagship: a 131072-point frame, a 1,048,576-point frame
      and a 131072-point frame with half its lanes colored;
-  4. K2 (plane_fit_features) vs its plain version at L=1000;
+  4. K2 (plane_fit_features) vs its plain version at L=1000, bitwise on
+     all five planes, on three maps: phase 3's prior, phase 8's 30-frame
+     stream map (so this phase runs after phase 8) and a fully valid
+     seeded terrain;
   5. K3 (segment_stats_sorted) vs its plain version on the five column
      sets `fuse_pallas` reduces, on a 131072-point and a 1,048,576-point
-     frame at L=1000;
+     frame at L=1000, timed as the kernel alone, through the wrapper, as
+     the plain version and as the `torch.segment_reduce` yardstick; then
+     on adversarial layouts (one segment, long runs across the blocks'
+     edges, empty head and tail gaps, all padding, no point, blocks of 1
+     to 7 points with repeated ids, 1,048,576 points, int32 and int64
+     ids);
   6. the fuse backends on one flagship frame: pallas, segment, sort and
      stream against each other, and the `lowest` plane;
   7. the step on the card vs the same step on the CPU (plain versions),
@@ -32,14 +42,29 @@ Phases, one line each (times from CUDA events after a warm-up):
      (512, 512, 128) voxel pyramid of phase 8's global cloud with its .bt
      and .ot files, and the DiSCO signatures of all 64 slots, each on the
      card and on the CPU from the same inputs, with both times.
-Then one JSON line of per-kernel results, the nvidia-smi line again, and
-the last line {"ok": true, "device": {...}}.  Any failure raises: the
-script exits non-zero and prints no result.  It imports no jax.
+Each kernel line gives its bound: the least time the card takes to move
+the bytes the call needs and do its fp32 operations (`bound`).  Then the
+flagship step medians, one JSON line of per-kernel results, the nvidia-smi
+line again, and the last line {"ok": true, "device": {...}}.  Any failure
+raises: the script exits non-zero and prints no result.  It imports no jax.
+
+With `--old DIR`, phases 4 and 5 also time an earlier version of K2 and K3:
+DIR holds their `features.cu` and `segment_stats.cu` with the C entry
+points they had before the Hopper redesign (K2 took the resolution as a
+double; K3 took per-segment run offsets, found by `torch.searchsorted`,
+and `fuse_pallas` passed it a (1, N) zero stack for each unused role).
+They are built beside the current sources with the same nvcc flags, held
+to the plain versions, and timed in turns with the current ones on the
+same inputs (earlier, current, current, earlier); `nvcc -Xptxas -v` and a
+count of fp64, conversion and call instructions in the SASS of each
+version are printed.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -52,6 +77,16 @@ import time
 
 import numpy as np
 import torch
+
+
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
+# fp32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# K2's fp32 operations per cell: a fitted cell's 25 x 13 moment terms and
+# its ~250-operation eigen epilogue; another cell's 25 validity tests
+K2_OPS_FITTED = 575
+K2_OPS_COUNT = 25
 
 
 def fail_unless(cond, msg):
@@ -70,6 +105,28 @@ def cuda_ms(fn, reps):
         fn()
     t1.record()
     torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean milliseconds per call of fn() on the card with the host left
+    out: `reps` calls captured in one CUDA graph, replayed once to warm up
+    and once under CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
     return t0.elapsed_time(t1) / reps
 
 
@@ -169,52 +226,226 @@ def phase_k1(cfg_fn, dev):
                     f"by {plane_err}")
         fail_unless(bool(torch.equal(fused_k.color, fused_p.color)),
                     f"K1 {name}: color planes differ")
-        t_k = cuda_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
+        t_k = graph_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
+        t_e = cuda_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
         t_p = cuda_ms(lambda: fs.fuse_stream_aggregate_plain(*args), 20)
+        b_ms = k1_bound(args)[0]
         print(f"phase 3 K1 {name}: ok points={int(batch.valid.sum())} "
               f"cells={int((k[2] > 0).sum())} selection_rows=bitwise "
               f"W_max_rel_err={rel_w:.3g} H_max_abs_err={h_err:.3g} "
               f"planes_max_abs_err={plane_err:.3g} kernel_ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f}", flush=True)
-        results.append((name, plane_err, t_k, t_p))
+              f"eager_ms={t_e:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
+              f"share_of_bound={b_ms / t_k:.3f}", flush=True)
+        results.append((name, plane_err, t_k, t_p, k1_bound(args), t_e))
         if name == "131k":
             prior = fused_k
     return results, prior
 
 
-def phase_k2(cfg, state_map, dev):
+def bound(nbytes, ops=0.0):
+    """(bound ms, what bounds it): the least time the card could take to
+    move `nbytes` (each input read once, each output written once) and do
+    `ops` fp32 operations, at the H100's published 3.35 TB/s and 67 TFLOP/s
+    fp32 outside the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_bound(args):
+    """K1's least bytes: its 16 output rows, the run offsets, the sorted
+    points' four columns, and the priors (elevation, variance) of the cells
+    that hold points."""
+    offsets, h, v, inten, colf, elev0, _, _ = args
+    occupied = int((offsets[1:] > offsets[:-1]).sum())
+    nbytes = (16 * elev0.numel() * 4 + offsets.numel() * 8
+              + 4 * h.numel() * 4 + 2 * occupied * 4)
+    return bound(nbytes)
+
+
+def terrain_map(cfg, dev):
+    """A fully valid L x L map: the seeded relief of `terrain` plus 1 cm
+    noise, every cell fused, the window rolled to (123, 457)."""
+    from gem_tpu_torch.core.state import init_map_state
+
+    L = cfg.map.length
+    g = np.arange(L) * cfg.map.resolution
+    rng = np.random.default_rng(11)
+    elev = (terrain(g[:, None], g[None, :])
+            + 0.01 * rng.standard_normal((L, L))).astype(np.float32)
+    return init_map_state(cfg.map, dev).replace(
+        elevation=torch.from_numpy(elev).to(dev),
+        start=torch.tensor([123, 457], dtype=torch.int32, device=dev))
+
+
+class Earlier:
+    """K2 and K3 built from the earlier sources in `src_dir` (`--old`),
+    bound with their earlier C entry points, and called as their earlier
+    wrappers called them."""
+
+    SOURCES = ("features.cu", "segment_stats.cu")
+    _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    SIGNATURES = {
+        # K2: ..., L, resolution (double), ...
+        "gem_plane_fit_features": (_P,) * 7 + (_I, ctypes.c_double)
+                                  + (_F,) * 5 + (_P,),
+        # K3: offsets (S + 1), columns, results, n, S, F per role, stream
+        "gem_segment_stats_sorted": (_P,) * 7 + (ctypes.c_int64,)
+                                    + (_I,) * 4 + (_P,)}
+
+    def __init__(self, src_dir):
+        from gem_tpu_torch.kernels import _build
+
+        out = os.path.join(os.path.dirname(_build.BUILD_DIR), "earlier")
+        os.makedirs(out, exist_ok=True)
+        jobs = {}
+        for who, d in (("earlier", src_dir), ("current", _build.CSRC)):
+            for src in self.SOURCES:
+                obj = os.path.join(out, f"{who}_{src[:-3]}.o")
+                jobs[who, src, obj] = subprocess.Popen(
+                    [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                     "-c", "-o", obj, os.path.join(d, src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+        for (who, src, obj), proc in jobs.items():
+            log = proc.communicate()[0]
+            fail_unless(proc.returncode == 0, f"nvcc failed on {who} {src}:"
+                        f"\n{log}")
+            sass = subprocess.run([cuobjdump, "-sass", obj], check=True,
+                                  capture_output=True, text=True).stdout
+            ops = {op: len(re.findall(rf"\b{op}\b", sass))
+                   for op in ("DMUL", "DADD", "DFMA", "F2F", "CALL")}
+            regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
+                    if "registers" in ln]
+            print(f"earlier: {who} {src} ptxas={regs} sass_ops={ops}",
+                  flush=True)
+        so = os.path.join(out, "libearlier.so")
+        subprocess.run([_build._nvcc(), "-shared", "-o", so,
+                        *(obj for (who, _, obj) in jobs if who == "earlier")],
+                       check=True)
+        self.lib = ctypes.CDLL(so)
+        for name, argtypes in self.SIGNATURES.items():
+            getattr(self.lib, name).argtypes = list(argtypes)
+            getattr(self.lib, name).restype = ctypes.c_int
+
+    def k2(self, m, mcfg):
+        """The earlier K2 wrapper (the same checks as the current one):
+        ((4, L, L) planes, (L, L) count)."""
+        from gem_tpu_torch.kernels import _build
+        from gem_tpu_torch.utils.precision import f32_recip
+
+        elev, start, L = m.elevation, m.start, mcfg.length
+        if elev.shape != (L, L) or elev.dtype != torch.float32 \
+                or not elev.is_contiguous():
+            raise ValueError("earlier K2: bad elevation")
+        if start.dtype != torch.int32 or start.device != elev.device \
+                or start.shape != (2,) or not start.is_contiguous():
+            raise ValueError("earlier K2: bad start")
+        planes = torch.empty((4, L, L), dtype=torch.float32,
+                             device=elev.device)
+        count = torch.empty((L, L), dtype=torch.int32, device=elev.device)
+        err = self.lib.gem_plane_fit_features(
+            elev.data_ptr(), start.data_ptr(),
+            *(p.data_ptr() for p in planes), count.data_ptr(), L,
+            mcfg.resolution, mcfg.invalid_elevation,
+            mcfg.invalid_traversability, f32_recip(mcfg.slope_critical),
+            f32_recip(mcfg.rough_critical),
+            float(mcfg.feature_min_neighbors), _build.stream_of(elev))
+        _build.check(err, "earlier K2")
+        return planes, count
+
+    @staticmethod
+    def k3_args(args):
+        """One call's arguments as the earlier `fuse_pallas` passed them:
+        a (1, N) zero stack for each unused role."""
+        ids_s, sv, mv, xv, S = args
+        zeros = torch.zeros((1, ids_s.shape[0]), device=ids_s.device)
+        return (ids_s, *(x if x.shape[0] else zeros for x in (sv, mv, xv)),
+                S)
+
+    def k3(self, args, offsets=None, outs=None):
+        """The earlier K3 on `k3_args(...)`: as its wrapper ran it (offsets
+        by `torch.searchsorted`, fresh outputs), or with `offsets` and
+        `outs` given, the kernel alone.  Returns (sums, mins, maxs)."""
+        from gem_tpu_torch.kernels import _build
+
+        ids_s, sv, mv, xv, S = args
+        if offsets is None:
+            offsets = torch.searchsorted(ids_s, torch.arange(
+                S + 1, device=ids_s.device, dtype=ids_s.dtype))
+        if outs is None:
+            outs = [torch.empty((x.shape[0], S), dtype=torch.float32,
+                                device=ids_s.device) for x in (sv, mv, xv)]
+        err = self.lib.gem_segment_stats_sorted(
+            offsets.data_ptr(), sv.data_ptr(), mv.data_ptr(), xv.data_ptr(),
+            *(o.data_ptr() for o in outs), ids_s.shape[0], S, sv.shape[0],
+            mv.shape[0], xv.shape[0], _build.stream_of(ids_s))
+        _build.check(err, "earlier K3")
+        return outs
+
+
+def in_turns(fns, timer, reps):
+    """{name: mean ms} of each closure, timed in turns (a, b, b, a for two)
+    so that a drift of the card's clock falls on both alike."""
+    names = list(fns)
+    t = {k: 0.0 for k in names}
+    order = names + names[::-1]
+    for k in order:
+        t[k] += timer(fns[k], reps) / order.count(k)
+    return t
+
+
+def phase_k2(cfg, states, old=None):
+    """K2 vs its plain version, bitwise on all five planes, on each named
+    map state; returns {name: (fitted cells, kernel ms, plain ms, bound ms,
+    bound_by, eager ms)}: the kernel's device time from a CUDA graph, and
+    the wrapper launched one by one.  The bound counts 24 bytes per cell
+    (the elevation read, four float planes and the count written) and
+    K2_OPS_FITTED fp32 operations per fitted cell, K2_OPS_COUNT per other
+    cell.  With `old` (an `Earlier`), the earlier K2 is held to the plain
+    version too and timed in turns with the current one."""
     from gem_tpu_torch.kernels import features as ft
 
-    k = ft.plane_fit_features(state_map, cfg.map)
-    p = ft.compute_features(state_map, cfg.map)
-    torch.cuda.synchronize()
-    fail_unless(bool(torch.equal(k.neighbor_count, p.neighbor_count)),
-                "K2: neighbor counts differ")
-    flat = p.normal_z > 1.0 - 1e-6
-    err = 0.0
-    for key in ("slope", "rough", "traver", "normal_z"):
-        d = (getattr(k, key) - getattr(p, key)).abs()
-        # 1e-5 everywhere (the JAX suite's pallas-vs-XLA bound); slope and
-        # traver 1e-3 where normal_z > 1 - 1e-6, since d acos/dx is
-        # unbounded at 1 and one ULP of normal_z there is ~3e-4 rad
-        if key in ("slope", "traver"):
-            fail_unless(bool((d[flat] <= 1e-3).all()),
-                        f"K2 {key}: near-flat cells differ by "
-                        f"{float(d[flat].max())}")
-            d = d[~flat]
-        m = float(d.max()) if d.numel() else 0.0
-        fail_unless(m <= 1e-5, f"K2 {key}: differs by {m}")
-        err = max(err, m)
-    valid = int((k.traver != cfg.map.invalid_traversability).sum())
-    fused = int((state_map.elevation != cfg.map.invalid_elevation).sum())
-    fail_unless(valid > 0.25 * fused,
-                f"K2: only {valid} of {fused} fused cells classified")
-    t_k = cuda_ms(lambda: ft.plane_fit_features(state_map, cfg.map), 50)
-    t_p = cuda_ms(lambda: ft.compute_features(state_map, cfg.map), 10)
-    print(f"phase 4 K2 L={cfg.map.length}: ok classified={valid} "
-          f"max_abs_err={err:.3g} kernel_ms={t_k:.4f} plain_ms={t_p:.4f}",
-          flush=True)
-    return err, t_k, t_p
+    mcfg = cfg.map
+    out = {}
+    for name, m in states.items():
+        k = ft.plane_fit_features(m, mcfg)
+        p = ft.compute_features(m, mcfg)
+        torch.cuda.synchronize()
+        for key in ("slope", "rough", "traver", "normal_z", "neighbor_count"):
+            fail_unless(bool(torch.equal(getattr(k, key), getattr(p, key))),
+                        f"K2 {name}: {key} differs from the plain version")
+        cells = mcfg.length ** 2
+        fitted = int(((m.elevation != mcfg.invalid_elevation)
+                      & (p.neighbor_count >= mcfg.feature_min_neighbors))
+                     .sum())
+        fail_unless(fitted > 0, f"K2 {name}: no fitted cell")
+        b_ms, b_by = bound(24 * cells, K2_OPS_FITTED * fitted
+                           + K2_OPS_COUNT * (cells - fitted))
+        fns = {"current": lambda: ft.plane_fit_features(m, mcfg)}
+        earlier = ""
+        if old is not None:
+            planes, count = old.k2(m, mcfg)
+            fail_unless(torch.equal(count, p.neighbor_count) and all(
+                torch.equal(planes[i], getattr(p, key)) for i, key in
+                enumerate(("slope", "rough", "traver", "normal_z"))),
+                f"K2 {name}: the earlier version differs from plain")
+            fns = {"earlier": lambda: old.k2(m, mcfg), **fns}
+        t_g = in_turns(fns, graph_ms, 50)
+        t_eg = in_turns(fns, cuda_ms, 50)
+        t_k, t_e = t_g["current"], t_eg["current"]
+        t_p = cuda_ms(lambda: ft.compute_features(m, mcfg), 5)
+        if old is not None:
+            earlier = (f" earlier=bitwise earlier_kernel_ms="
+                       f"{t_g['earlier']:.4f} earlier_eager_ms="
+                       f"{t_eg['earlier']:.4f}")
+        print(f"phase 4 K2 L={mcfg.length} {name}: ok planes=bitwise "
+              f"fitted={fitted} kernel_ms={t_k:.4f} eager_ms={t_e:.4f} "
+              f"plain_ms={t_p:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"share_of_bound={b_ms / t_k:.3f}{earlier}", flush=True)
+        out[name] = (fitted, t_k, t_p, b_ms, b_by, t_e)
+    return out
 
 
 def phase_parity(dev, backend):
@@ -293,36 +524,178 @@ def fuse_pallas_calls(ms, cfg, batch):
     return calls
 
 
-def k3_compare(args):
-    """K3 against its plain version on one call's arguments: mins and maxs
-    bitwise, each sum within 1e-5 of the sum of its terms' magnitudes (the
-    plain version adds with atomics in no fixed order).  Returns the max
-    abs error of the sums."""
+def k3_check(args, got, what):
+    """Hold (sums, mins, maxs) against K3's plain version on one call's
+    arguments: mins and maxs bitwise, each sum within 1e-5 of the sum of
+    its terms' magnitudes (the plain version adds with atomics in no fixed
+    order).  Returns the max abs error of the sums."""
     from gem_tpu_torch.kernels import segment_stats as sst
 
     ids_s, sv, mv, xv, S = args
-    ks, kn, kx, _ = sst.segment_stats_sorted(*args)
+    ks, kn, kx = got
     ps, pn, px = sst.segment_stats_sorted_plain(*args)
     mag = sst.segment_stats_sorted_plain(ids_s, sv.abs(), mv, xv, S)[0]
     torch.cuda.synchronize()
+    fail_unless(ks.shape == ps.shape and kn.shape == pn.shape
+                and kx.shape == px.shape, f"{what}: result shapes differ")
     fail_unless(bool(torch.equal(kn, pn) and torch.equal(kx, px)),
-                "K3: mins/maxs differ from the plain version")
+                f"{what}: mins/maxs differ from the plain version")
     d = (ks - ps).abs()
+    err = float(d.max()) if d.numel() else 0.0
     fail_unless(bool((d <= 1e-5 * mag).all()),
-                f"K3: sums differ by up to {float(d.max())}")
-    return float(d.max())
+                f"{what}: sums differ by up to {err}")
+    return err
 
 
-def phase_k3(cfg_fn, dev):
+def k3_compare(args):
+    """K3 against its plain version on one call's arguments (`k3_check`)."""
+    from gem_tpu_torch.kernels import segment_stats as sst
+
+    return k3_check(args, sst.segment_stats_sorted(*args, with_spill=False)
+                    [:3], "K3")
+
+
+def k3_kernel_only(args):
+    """A closure that launches K3's kernel alone on one call's arguments,
+    into outputs allocated once: the wrapper's checks and allocations left
+    out."""
+    from gem_tpu_torch.kernels import _build
+
+    ids_s, sv, mv, xv, S = args
+    outs = [torch.empty((x.shape[0], S), dtype=torch.float32,
+                        device=ids_s.device) for x in (sv, mv, xv)]
+    lib = _build.library()
+    call = (ids_s.data_ptr(), int(ids_s.dtype == torch.int64),
+            sv.data_ptr(), mv.data_ptr(), xv.data_ptr(),
+            *(o.data_ptr() for o in outs), ids_s.shape[0], S, sv.shape[0],
+            mv.shape[0], xv.shape[0])
+    launched = ctypes.c_int(0)
+
+    def run():
+        # the stream is read at each call: a CUDA graph captures on its own
+        _build.check(lib.gem_segment_stats_sorted(
+            *call, _build.stream_of(ids_s), ctypes.byref(launched)), "K3")
+        return outs   # held by the closure: the kernel writes into them
+    return run
+
+
+def k3_library(args):
+    """The yardstick: one `torch.segment_reduce` call per role of the call
+    (sum, amin, amax), on the same sorted columns with offsets computed
+    beforehand.  Returns (closure, results as (F, S) per role)."""
+    ids_s, sv, mv, xv, S = args
+    offsets = torch.searchsorted(ids_s, torch.arange(
+        S + 1, device=ids_s.device, dtype=ids_s.dtype)).to(torch.int64)
+    m = int(offsets[-1])
+    roles = [(x.t()[:m].contiguous(), kind, init) for x, kind, init in (
+        (sv, "sum", 0.0), (mv, "amin", float("inf")),
+        (xv, "amax", float("-inf"))) if x.shape[0]]
+
+    def run():
+        return [torch.segment_reduce(d, kind, offsets=offsets, axis=0,
+                                     initial=init, unsafe=True)
+                for d, kind, init in roles]
+
+    def results():
+        """The yardstick's results as (sums, mins, maxs) of (F, S)."""
+        out = iter(run())
+        return tuple(next(out).t() if x.shape[0] else
+                     torch.empty((0, S), device=x.device) for x in (sv, mv, xv))
+    return run, results
+
+
+def k3_bound(args):
+    """K3's least bytes for one call: the sorted ids and the used columns
+    read once, the (F, S) results written once."""
+    ids_s, sv, mv, xv, S = args
+    f_in = sv.shape[0] + mv.shape[0] + xv.shape[0]
+    n = ids_s.shape[0]
+    return bound(n * ids_s.element_size() + f_in * n * 4 + f_in * S * 4)
+
+
+def sparse_block_ids(rng, S, block=2048):
+    """Ids that put 1 to 7 points in each of 70 blocks of `block`
+    segments (K3's owners), fewer than a block's 8 warp parts, so parts
+    between two carries of one run stay empty: per count, five cell
+    patterns (all in one cell, the first two sharing, the last two
+    sharing, pairs, random repeats over three cells), each at the block's
+    first cells and at cells 300 apart; every other block empty."""
+    pats = []
+    for m in range(1, 8):
+        k = np.arange(m)
+        pats += [np.zeros(m, np.int64), np.maximum(k - 1, 0),
+                 np.minimum(k, max(m - 2, 0)), k // 2,
+                 np.sort(rng.integers(0, 3, m))]
+    cases = [p * spread for spread in (1, 300) for p in pats]
+    blocks = np.sort(rng.choice(S // block, len(cases), replace=False))
+    return np.concatenate([b * block + c for b, c in zip(blocks, cases)]
+                          + [np.full(5, S, np.int64)])
+
+
+def k3_adversarial(dev):
+    """K3 vs plain on layouts that stress the owners (blocks of 2048
+    segments, their points cut into 8 warp parts by position): every point
+    in one segment; runs of 100-3000 points, longer than a warp's 256-point
+    step, at ids that straddle 256-segment marks and the blocks' edges;
+    empty head and tail gaps; every lane padding; no point at all; blocks
+    of 1 to 7 points with repeated ids (`sparse_block_ids`), and 3 or 4
+    points in all; 1,048,576 points over 10^6 segments; and int64 ids."""
+    S = 1000 * 1000
+    rng = np.random.default_rng(21)
+
+    def run_ids(heads, lengths, n_pad):
+        ids = np.repeat(np.asarray(heads, np.int64), lengths)
+        return np.concatenate([ids, np.full(n_pad, S, np.int64)])
+
+    heads = sorted({k * 256 + d for k in (1, 2, 8, 9, 3905) for d in (-1, 0)}
+                   | set(rng.choice(S, 40, replace=False).tolist()))
+    layouts = {
+        "one_segment": np.full(1 << 17, 54321, np.int64),
+        "long_runs_on_owner_edges": run_ids(
+            heads, rng.integers(100, 3000, len(heads)), 777),
+        "head_and_tail_gaps": np.concatenate([np.sort(rng.integers(
+            S // 3, 2 * S // 3, 100000)), np.full(1000, S)]),
+        "all_padding": np.full(4096, S, np.int64),
+        "no_points": np.zeros(0, np.int64),
+        "sparse_blocks": sparse_block_ids(rng, S),
+        "three_points_one_cell": np.full(3, 54321, np.int64),
+        "four_points_first_two_share": np.array([54321, 54321, 54322,
+                                                 60000], np.int64),
+        "1M_points": np.sort(np.where(rng.random(1 << 20) < 0.95,
+                                      rng.integers(0, S, 1 << 20), S)),
+    }
+    errs = {}
+    for name, ids in layouts.items():
+        for dtype in ((torch.int32, torch.int64) if name != "1M_points"
+                      else (torch.int32,)):
+            n = len(ids)
+            t = torch.from_numpy(np.sort(ids)).to(dev, dtype)
+            cols = [torch.from_numpy(rng.standard_normal((f, n))
+                                     .astype(np.float32)).to(dev)
+                    for f in (2, 2, 1)]
+            errs[f"{name}/{str(dtype)[6:]}"] = k3_compare((t, *cols, S))
+    print(f"phase 5 K3 adversarial S={S}: ok mins_maxs=bitwise "
+          f"sums_max_abs_err={json.dumps(errs)}", flush=True)
+    return max(errs.values())
+
+
+def phase_k3(cfg_fn, dev, old=None):
     """K3 vs plain on the five column sets of fuse_pallas, on the third
     frame of a 131072-point and of a 1,048,576-point drive (two warm frames
-    through the pallas step first).  Returns (results, the 131k frame's
-    (cfg, moved map, batch, lowest))."""
+    through the pallas step first), then on the adversarial layouts.
+    Times per call and per frame: the kernel alone (device time, from a
+    CUDA graph), the wrapper as fuse_pallas calls it, the plain version and
+    the `torch.segment_reduce` yardstick (each launched one by one: the
+    yardstick cannot be captured in a graph).  With `old` (an `Earlier`),
+    the earlier K3 is held to the plain version on its own arguments and
+    its kernel and wrapper are timed in turns with the current ones.
+    Returns (results, adversarial max error, the 131k frame's (cfg, moved
+    map, batch, lowest))."""
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.kernels import segment_stats as sst
     from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
 
-    results, flagship = [], None
+    results, flagship = {}, None
     for name, n in (("131k", 1 << 17), ("1M", 1 << 20)):
         cfg = cfg_fn(max_points=n)
         frames = [f for f, _, _ in synthetic_frames(
@@ -333,21 +706,45 @@ def phase_k3(cfg_fn, dev):
         ms, batch, lowest = frame_batch(state, frames[2], cfg)
         calls = fuse_pallas_calls(ms, cfg, batch)
         err = max(k3_compare(a) for a in calls)
-        # the wrapper as fuse_pallas calls it: offsets search + kernel
-        t_k = sum(cuda_ms(lambda: sst.segment_stats_sorted(
-            *a, with_spill=False), 20) for a in calls)
-        t_p = sum(cuda_ms(lambda: sst.segment_stats_sorted_plain(*a), 20)
-                  for a in calls)
+        t = {"kernel": 0.0, "wrapper": 0.0, "plain": 0.0, "library": 0.0,
+             "bound": 0.0}
+        if old is not None:
+            t.update(earlier_kernel=0.0, earlier_wrapper=0.0)
+        for a in calls:
+            lib_run, lib_results = k3_library(a)
+            k3_check(a, lib_results(), "K3 yardstick (segment_reduce)")
+            kernels = {"kernel": k3_kernel_only(a)}
+            wrappers = {"wrapper": lambda: sst.segment_stats_sorted(
+                *a, with_spill=False)}
+            if old is not None:
+                o = Earlier.k3_args(a)
+                got = old.k3(o)
+                k3_check(a, [x[:a[i + 1].shape[0]] for i, x in
+                             enumerate(got)], "earlier K3")
+                offsets = torch.searchsorted(o[0], torch.arange(
+                    o[4] + 1, device=dev, dtype=o[0].dtype))
+                kernels = {"earlier_kernel": lambda: old.k3(o, offsets, got),
+                           **kernels}
+                wrappers = {"earlier_wrapper": lambda: old.k3(o), **wrappers}
+            for k, v in in_turns(kernels, graph_ms, 50).items():
+                t[k] += v
+            for k, v in in_turns(wrappers, cuda_ms, 50).items():
+                t[k] += v
+            t["plain"] += cuda_ms(lambda: sst.segment_stats_sorted_plain(*a),
+                                  20)
+            t["library"] += cuda_ms(lib_run, 20)
+            t["bound"] += k3_bound(a)[0]
         print(f"phase 5 K3 {name}: ok points={int(batch.valid.sum())} "
               f"calls=5 F={[tuple(x.shape[0] for x in a[1:4]) for a in calls]}"
-              f" mins_maxs=bitwise sums_max_abs_err={err:.3g} "
-              f"kernel_ms_per_call={t_k / 5:.4f} plain_ms_per_call="
-              f"{t_p / 5:.4f} kernel_ms_per_frame={t_k:.4f} "
-              f"plain_ms_per_frame={t_p:.4f}", flush=True)
-        results.append((name, err, t_k / 5, t_p / 5))
+              f" mins_maxs=bitwise sums_max_abs_err={err:.3g} per_frame_ms: "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
+              + f" share_of_bound={t['bound'] / t['kernel']:.3f}",
+              flush=True)
+        results[name] = (err, {k: v / 5 for k, v in t.items()})
         if name == "131k":
             flagship = (cfg, ms, batch, lowest)
-    return results, flagship
+    adv_err = k3_adversarial(dev)
+    return results, adv_err, flagship
 
 
 def phase_backends(cfg, ms, batch, lowest):
@@ -478,11 +875,10 @@ def phase_cli(dev):
 
 
 def octree_leaves(path):
-    """Occupied leaves of a .bt or .ot file, read back by the shared reader."""
-    from gem_tpu_torch.shared import load
+    """Occupied leaves of a .bt or .ot file, read back by the port's reader."""
+    from gem_tpu_torch.global_map import octomap_io
 
-    octo = load("global_map/octomap_io.py")
-    read = octo.read_bt if path.endswith(".bt") else octo.read_ot
+    read = octomap_io.read_bt if path.endswith(".bt") else octomap_io.read_ot
     return len(read(path)[1])
 
 
@@ -789,7 +1185,7 @@ def kernel_wrappers():
 def phase_flagship(dev, backend, frames, world):
     """30 flagship frames through ElevationPipeline with `backend`; every
     launch count is set to 0 just before and read just after.  Returns
-    (launches by kernel, median step ms)."""
+    (launches by kernel, median step ms, the global cloud, the final map)."""
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.core import index_math as im
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
@@ -855,10 +1251,15 @@ def phase_flagship(dev, backend, frames, world):
           f"num_submaps={int(st.submaps.num_submaps)} rmse_vs_truth={rmse:.5f}"
           f" median_abs_err={med:.5f} launches={launches} "
           f"max_memory_allocated={peak}", flush=True)
-    return launches, step_ms, cloud
+    return launches, step_ms, cloud, st.map
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", metavar="DIR",
+                    help="also time the earlier features.cu and "
+                         "segment_stats.cu in DIR (phases 4 and 5)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
                            "torch.cuda.is_available() is False")
@@ -877,10 +1278,10 @@ def main():
     _build.library()
     print(f"phase 2 build: ok nvcc_s={nvcc_s:.2f} total_s="
           f"{time.perf_counter() - t0:.2f} {path}", flush=True)
+    old = Earlier(args.old) if args.old else None
 
     k1, prior = phase_k1(benchmark_config, dev)
-    k2_err, k2_ms, k2_plain = phase_k2(benchmark_config(), prior, dev)
-    k3, flagship_frame = phase_k3(benchmark_config, dev)
+    k3, k3_adv_err, flagship_frame = phase_k3(benchmark_config, dev, old)
     phase_backends(*flagship_frame)
     del flagship_frame
     phase_parity(dev, "stream")
@@ -890,34 +1291,56 @@ def main():
                                         n_points=131072, speed=0.5, seed=0,
                                         device=dev):
         frames.append(f)
-    launches, _, cloud = phase_flagship(dev, "stream", frames, world)
-    launches_pallas, _, _ = phase_flagship(dev, "pallas", frames, world)
+    launches, step_stream, cloud, stream_map = phase_flagship(
+        dev, "stream", frames, world)
+    launches_pallas, step_pallas, _, _ = phase_flagship(dev, "pallas", frames,
+                                                        world)
     del frames
+    # phase 4 after the flagship: its second state is the stream path's map
+    cfg = benchmark_config()
+    k2 = phase_k2(cfg, {"phase3_prior": prior, "stream_30_frames": stream_map,
+                        "valid_terrain": terrain_map(cfg, dev)}, old)
+    del prior, stream_map
     phase_cli(dev)
     phase_global_map_cli(dev)
     phase_global_map(dev, cloud)
 
+    n_frames = 30
     k1_main = next(r for r in k1 if r[0] == "131k")
-    k3_main = next(r for r in k3 if r[0] == "131k")
+    k2_main = k2["stream_30_frames"]
+    k3_err, k3_main = k3["131k"]
     kernels = [
         {"name": "fuse_stream_aggregate", "route": "cuda",
          "source": "gem_tpu_torch/csrc/fuse_stream.cu",
          "replaces": "gem_tpu/kernels/fuse_stream.py:521, :213, :757",
          "launches": launches["fuse_stream_aggregate"],
+         "launches_per_frame": launches["fuse_stream_aggregate"] / n_frames,
          "max_abs_err": max(r[1] for r in k1),
-         "ms": k1_main[2], "plain_ms": k1_main[3]},
+         "ms": k1_main[2], "plain_ms": k1_main[3],
+         "bound_ms": k1_main[4][0], "bound_by": k1_main[4][1],
+         "library_ms": None, "eager_ms": k1_main[5]},
         {"name": "plane_fit_features", "route": "cuda",
          "source": "gem_tpu_torch/csrc/features.cu",
          "replaces": "gem_tpu/kernels/features_pallas.py:42",
          "launches": launches["plane_fit_features"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "launches_per_frame": launches["plane_fit_features"] / n_frames,
+         "max_abs_err": 0.0, "ms": k2_main[1], "plain_ms": k2_main[2],
+         "bound_ms": k2_main[3], "bound_by": k2_main[4],
+         "library_ms": None, "eager_ms": k2_main[5]},
         {"name": "segment_stats_sorted", "route": "cuda",
          "source": "gem_tpu_torch/csrc/segment_stats.cu",
          "replaces": "gem_tpu/kernels/pallas_scatter.py:40",
          "launches": launches_pallas["segment_stats_sorted"],
-         "max_abs_err": max(r[1] for r in k3),
-         "ms": k3_main[2], "plain_ms": k3_main[3]},
+         "launches_per_frame":
+             launches_pallas["segment_stats_sorted"] / n_frames,
+         "max_abs_err": max(max(e for e, _ in k3.values()), k3_adv_err),
+         "ms": k3_main["kernel"], "plain_ms": k3_main["plain"],
+         "bound_ms": k3_main["bound"], "bound_by": "bytes",
+         "library_ms": k3_main["library"],
+         "wrapper_ms": k3_main["wrapper"]},
     ]
+    print(f"flagship step_ms_median stream={step_stream:.3f} "
+          f"pallas={step_pallas:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

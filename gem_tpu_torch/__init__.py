@@ -11,14 +11,20 @@ and function names so each module's counterpart is obvious:
                  kernels' CUDA C++ sources, kernels/_build.py builds them
     sensors/     the four sensor noise models
     motion/      pose-covariance -> map process noise
-    global_map/  the submap store (with the orthomosaic ring)
+    global_map/  the submap store (with the orthomosaic ring), loop
+                 closure, voxel pyramid + octomap files, densify, signatures
     mapping/     the per-frame step and ElevationPipeline
     render/      costmaps, inflation, orthomosaic, heatmap, grid cloud
-    io/          synthetic and npz replay, npz checkpoints, the `run` CLI
-                 (`python -m gem_tpu_torch run`)
-    utils/       precision rules, metrics / phase timing / torch.profiler
-    shared.py    gem_tpu's JAX-free modules (config, pcd, image, msgs,
-                 sensor catalog, native runtime), loaded by path
+    io/          synthetic and npz replay, npz checkpoints, PCD, KITTI
+                 conversion, the CLI (`python -m gem_tpu_torch run`)
+    utils/       precision rules, metrics / torch.profiler, PNG writer
+    native/      the C++ host runtime (voxel filter, cell dedup, file
+                 prefetcher), built with g++ into build/gem_tpu_torch/
+    config.py, msgs.py  the configuration tree and the record types
+
+config, msgs, io/pcd, io/kitti, utils/image, sensors/catalog,
+global_map/octomap_io and native are copies of gem_tpu's JAX-free modules:
+the port reads nothing under gem_tpu/.
 
 State is frozen dataclasses of tensors, functions are plain tensor code, and
 every constructor takes an explicit `device`.  On CPU tensors each kernel

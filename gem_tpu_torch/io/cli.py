@@ -29,7 +29,11 @@ import time
 import numpy as np
 import torch
 
-from gem_tpu_torch.shared import load as _load_shared
+from gem_tpu_torch import msgs, native
+from gem_tpu_torch.global_map import octomap_io
+from gem_tpu_torch.io import pcd
+from gem_tpu_torch.sensors import catalog
+from gem_tpu_torch.utils import image as image_mod
 
 _FIELDS = ("x", "y", "z", "color", "intensity", "variance", "traver", "valid")
 
@@ -50,7 +54,6 @@ def _build_config(args):
     if args.max_points:
         cfg = cfg.replace(max_points=args.max_points)
     if args.sensor:
-        catalog = _load_shared("sensors/catalog.py")
         cfg = cfg.replace(sensor=catalog.sensor_preset(args.sensor))
     if args.camera:
         d = np.load(args.camera)
@@ -83,7 +86,7 @@ def _frames(cfg, args, device):
         sys.exit(f"no .npz frames under {args.dataset}")
     paths = paths[: args.frames or None]
     # the native background loader overlaps file IO with device compute
-    pf = _load_shared("native/__init__.py").FramePrefetcher(paths, ring=4)
+    pf = native.FramePrefetcher(paths, ring=4)
     try:
         for i in range(len(pf)):
             yield load_npz_frame(cfg, pf[i], device=device)
@@ -118,14 +121,13 @@ def _global_cloud(pipe, cfg):
 
 
 def _save_global_pcd(pipe, cfg, path):
-    native = _load_shared("native/__init__.py")
     cat = _global_cloud(pipe, cfg)
     # min-variance record per cell through the native spatial hash (the
     # reference dedups through its unordered_map on insert)
     kept = native.dedup_cells(cat["x"], cat["y"], cat["variance"],
                               cat["valid"], cfg.map.resolution)
     cat = {k: v[kept] for k, v in cat.items()}
-    return _load_shared("io/pcd.py").save_pcd(
+    return pcd.save_pcd(
         path, cat["x"], cat["y"], cat["z"], cat["color"], cat["intensity"],
         cat["variance"], cat["traver"], valid=cat["valid"])
 
@@ -171,7 +173,6 @@ def cmd_run(args):
         print(f"resumed from {args.resume} "
               f"(frame {int(pipe.state.frame_idx)})")
 
-    image_mod = _load_shared("utils/image.py")
     metrics_log = MetricsLogger(args.metrics_out)
     t0 = last_t = time.time()
     n = 0
@@ -225,7 +226,7 @@ def cmd_run(args):
             print(f"pre-loop map ({npts} points) -> "
                   f"{args.save_map}.before_loop.pcd")
         if args.keyframes:
-            rec = _load_shared("msgs.py").KeyframesRecord.load(args.keyframes)
+            rec = msgs.KeyframesRecord.load(args.keyframes)
             opt_poses = rec.poses
         else:
             # demo: simulate the SLAM optimiser correcting accumulated drift
@@ -294,7 +295,6 @@ def cmd_run(args):
     s = state_to_numpy(pipe.state).submaps
     n_slots = min(int(s.num_submaps), s.counts.shape[0])
     if args.publish_submaps:
-        msgs = _load_shared("msgs.py")
         os.makedirs(args.publish_submaps, exist_ok=True)
         for i in range(n_slots):
             rec = msgs.submap_record_from_store(s, i,
@@ -309,7 +309,7 @@ def cmd_run(args):
         from gem_tpu_torch.global_map.densify import densify_submap
         from gem_tpu_torch.global_map.submaps import PointBuffer
 
-        save_pcd = _load_shared("io/pcd.py").save_pcd
+        save_pcd = pcd.save_pcd
         os.makedirs(args.save_submaps, exist_ok=True)
         slots = pipe.state.submaps.slots
         for i in range(n_slots):
@@ -364,19 +364,18 @@ def save_octomap(path, road, obs):
         out["origin"] = np.asarray(road[0].origin, np.float32)
         np.savez_compressed(path, **out)
         return [("levels", path, None)]
-    octo = _load_shared("global_map/octomap_io.py")
     ext, stem = path[-3:], path[:-3]
     written = []
     for name, g in (("road", road[0]), ("obstacle", obs[0])):
         p = f"{stem}_{name}{ext}"
         occ = _numpy(g.occupancy)
         if ext == ".bt":
-            nn = octo.write_voxelgrid_bt(p, occ, g.origin, g.resolution)
+            nn = octomap_io.write_voxelgrid_bt(p, occ, g.origin, g.resolution)
         else:
             idx = np.argwhere(occ)
             col = _numpy(g.color)[idx[:, 0], idx[:, 1], idx[:, 2]]
             center = lambda a: g.origin[a] + (idx[:, a] + 0.5) * g.resolution
-            nn = octo.write_ot(p, center(0), center(1), center(2), col,
+            nn = octomap_io.write_ot(p, center(0), center(1), center(2), col,
                                g.resolution)
         written.append((name, p, nn))
     return written
@@ -436,7 +435,7 @@ def cmd_viz(args):
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    d = _load_shared("io/pcd.py").load_pcd(args.pcd)
+    d = pcd.load_pcd(args.pcd)
     x, y, z = d["x"], d["y"], d["z"]
     fig, axes = plt.subplots(1, 2, figsize=(14, 6))
     if args.color_by == "rgb" and "rgb" in d and (d["rgb"] != 0).any():

@@ -21,8 +21,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from gem_tpu_torch import native
 from gem_tpu_torch.mapping.pipeline import Frame, frame_from_numpy
-from gem_tpu_torch.shared import load as _load_shared
 
 
 @dataclasses.dataclass
@@ -143,7 +143,7 @@ def pad_frame(cfg, points, intensity=None, colors=None, transform=None,
     gem_tpu)."""
     pf = cfg.prefilter
     if pf.leaf > 0 and colors is None:
-        points, intensity = _load_shared("native/__init__.py").voxel_filter(
+        points, intensity = native.voxel_filter(
             points, intensity, leaf=pf.leaf,
             crop=(pf.crop_x, pf.crop_y, pf.crop_z))
     P = cfg.max_points

@@ -44,20 +44,21 @@ _F = ctypes.c_float
 _L = ctypes.c_int64
 # C entry points: (argtypes); each returns cudaGetLastError() as an int
 _SIGNATURES = {
-    # offsets, sum_vals, min_vals, max_vals, sums, mins, maxs, n,
-    # num_segments, n_sum, n_min, n_max, stream
-    "gem_segment_stats_sorted": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
-                                 _I, _I, _P),
+    # ids, ids are int64, sum_vals, min_vals, max_vals, sums, mins, maxs,
+    # n, num_segments, n_sum, n_min, n_max, stream, kernels launched (out)
+    "gem_segment_stats_sorted": (_P, _I, _P, _P, _P, _P, _P, _P, _L, _I,
+                                 _I, _I, _I, _P, ctypes.POINTER(_I)),
     # offsets, h, v, inten, colf, elev0, var0, out, ncell,
     # invalid_elevation, min_variance, mahalanobis_threshold,
     # with_lowest, with_color, stream
     "gem_fuse_stream_aggregate": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _F, _F, _F, _I, _I, _P),
     # elevation, start, slope, rough, traver, normal_z, count, L,
-    # resolution, invalid_elevation, invalid_traversability,
-    # 1/slope_critical, 1/rough_critical, feature_min_neighbors, stream
-    "gem_plane_fit_features": (_P, _P, _P, _P, _P, _P, _P, _I,
-                               ctypes.c_double, _F, _F, _F, _F, _F, _P),
+    # offset table (host float[40]), invalid_elevation,
+    # invalid_traversability, 1/slope_critical, 1/rough_critical,
+    # feature_min_neighbors, stream
+    "gem_plane_fit_features": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _F,
+                               _F, _F, _F, _P),
 }
 
 

@@ -10,8 +10,10 @@ kernel).  `plane_fit_features` is the kernel wrapper: on CPU tensors it runs
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 
 from gem_tpu_torch.core.state import MapState
@@ -131,6 +133,28 @@ def compute_features(state: MapState, cfg) -> FeatureMaps:
                        neighbor_count=acc["n"].to(torch.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def _offset_table(res: float) -> np.ndarray:
+    """K2's float[40] table of the 5x5 offsets (the `Offsets` struct of
+    csrc/features.cu): c[k] = f32(k*res) and cc[k] = f32((k*res)^2) for
+    k = -2..2, cxy[i][j] = f32((i*res)*(j*res)), then the sums Sx, Sy, Sxx,
+    Syy, Sxy over all 25 offsets in `compute_features`'s (i, j) order.  The
+    products are formed in double and rounded to float once, as PyTorch
+    rounds the Python scalars of the plain version; the sums add in float."""
+    ks = range(-2, 3)
+    c = np.array([k * res for k in ks], np.float32)
+    cc = np.array([(k * res) * (k * res) for k in ks], np.float32)
+    cxy = np.array([(i * res) * (j * res) for i in ks for j in ks],
+                   np.float32)
+    full = np.zeros(5, np.float32)        # Sx, Sy, Sxx, Syy, Sxy
+    for i in range(5):
+        for j in range(5):
+            terms = np.array([c[i], c[j], cc[i], cc[j], cxy[5 * i + j]],
+                             np.float32)
+            full = full + terms            # float32 adds, one per offset
+    return np.concatenate([c, cc, cxy, full]).astype(np.float32)
+
+
 def plane_fit_features(state: MapState, cfg) -> FeatureMaps:
     """Five feature planes of the 5x5 plane fit.  CPU tensors run
     `compute_features`; CUDA tensors launch K2 and count the launch in
@@ -157,7 +181,8 @@ def plane_fit_features(state: MapState, cfg) -> FeatureMaps:
     err = lib.gem_plane_fit_features(
         elev.data_ptr(), start.data_ptr(), planes[0].data_ptr(),
         planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
-        count.data_ptr(), L, cfg.resolution, cfg.invalid_elevation,
+        count.data_ptr(), L, _offset_table(float(cfg.resolution)).ctypes.data,
+        cfg.invalid_elevation,
         cfg.invalid_traversability, f32_recip(cfg.slope_critical),
         f32_recip(cfg.rough_critical),
         float(cfg.feature_min_neighbors), _build.stream_of(elev))

@@ -163,15 +163,16 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     valid = ids_s < ncell
     hascol = hascol > 0.5
     cidx = torch.clamp(ids_s, max=ncell - 1).to(torch.int64)
-    dummy = torch.zeros((1, ids_s.shape[0]), dtype=torch.float32,
-                        device=ids_s.device)
+    # the (0, N) stack of a role whose result is not used: K3 skips it
+    none = torch.empty((0, ids_s.shape[0]), dtype=torch.float32,
+                       device=ids_s.device)
 
     def stats(sv, mv, xv):
         return segment_stats_sorted(ids_s, sv, mv, xv, ncell,
                                     with_spill=False)
 
     # --- pass 1: anchor candidates -----------------------------------------
-    _, _, xs, _ = stats(dummy, dummy, torch.where(valid, h, -_INF)[None])
+    _, _, xs, _ = stats(none, none, torch.where(valid, h, -_INF)[None])
     h_max = xs[0]
     any_candidate = torch.isfinite(h_max)
     p_is_argmax = valid & (h == h_max[cidx])
@@ -179,8 +180,8 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     # --- pass 2: v(argmax) fixes the empty-cell anchor variance ------------
     anchor_elev = torch.where(empty, h_max, elev0)
     w = 1.0 / torch.clamp(v, min=_WEIGHT_EPS)
-    _, ms0, _, _ = stats(dummy, torch.where(p_is_argmax, v, _INF)[None],
-                         dummy)
+    _, ms0, _, _ = stats(none, torch.where(p_is_argmax, v, _INF)[None],
+                         none)
     anchor_var = torch.where(
         empty, torch.clamp(ms0[0], min=mcfg.min_variance), var0c)
     a_var = anchor_var[cidx]
@@ -193,7 +194,7 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     ss, _, xs2, _ = stats(
         torch.stack([torch.where(inlier, w, 0.0),
                      torch.where(inlier, w * h, 0.0)]),
-        dummy, torch.where(out_mask, h, -_INF)[None])
+        none, torch.where(out_mask, h, -_INF)[None])
     h_max_out = xs2[0]
     post_elev, post_var, init_path, kalman_path = _posterior(
         ss[0], ss[1], elev0, var0, var0c, empty, any_candidate)
@@ -205,10 +206,10 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     contributing = valid & hascol & torch.where(overwrite_path[cidx],
                                                 p_is_argout, inlier)
     _, ms3, _, _ = stats(
-        dummy,
+        none,
         torch.stack([torch.where(p_is_argout, v, _INF),
                      torch.where(contributing, v, _INF)]),
-        dummy)
+        none)
     v_argout, v_c = ms3[0], ms3[1]
     new_elev = torch.where(overwrite_path, h_max_out, post_elev)
     new_var = torch.clamp(torch.where(overwrite_path, v_argout, post_var),
@@ -217,10 +218,10 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     # --- pass 5: color payload ---------------------------------------------
     p_is_cbest = contributing & (v == v_c[cidx])
     _, ms4, _, _ = stats(
-        dummy,
+        none,
         torch.stack([torch.where(p_is_cbest, color_f, _INF),
                      torch.where(p_is_cbest, inten, _INF)]),
-        dummy)
+        none)
     color_update = torch.isfinite(v_c) & (init_path | kalman_path
                                           | overwrite_path)
     # the +inf of cells without a colored point never reaches the int cast

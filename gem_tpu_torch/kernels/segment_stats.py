@@ -3,21 +3,26 @@
 Counterpart of gem_tpu/kernels/pallas_scatter.py.  `segment_stats_sorted`
 is the wrapper of kernel K3: on CPU tensors it runs its plain PyTorch
 version, `segment_stats_sorted_plain`; on CUDA tensors it launches
-csrc/segment_stats.cu and counts the launch in
-`segment_stats_sorted.launches`.
+csrc/segment_stats.cu and adds the kernels launched to
+`segment_stats_sorted.launches`: one per four columns, so one for each
+`fuse_pallas` call, and none when no column or no segment is passed.  A
+role whose results the caller drops takes a (0, N) stack and returns a
+(0, S) result at no cost.
 
 The TPU kernel walks fixed point chunks, each reducing into a window of
 `window` cells starting at its chunk's first id (lane-aligned to 128);
 points beyond their chunk's window "spill" and a jnp fallback adds them
-back.  The CUDA kernel has no window: one thread per segment reduces every
-point of its sorted run, so nothing spills and there is no fallback.  The
-returned `n_spill` is kept as a diagnostic of the TPU's window geometry:
-the count JAX reports for the same ids, `chunk` and `window`
-(`spill_count`), computed here in plain torch.  The kernel ignores both
-keywords; `pad_sort` pads to a `chunk` multiple as JAX does.
+back.  The CUDA kernel has no window: each block owns a range of segments
+and reduces every point whose id lies there, so nothing spills and there
+is no fallback.  The returned `n_spill` is kept as a diagnostic of the
+TPU's window geometry: the count JAX reports for the same ids, `chunk` and
+`window` (`spill_count`), computed here in plain torch.  The kernel ignores
+both keywords; `pad_sort` pads to a `chunk` multiple as JAX does.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -84,20 +89,22 @@ def _segment_stats_cuda(ids_s, sum_vals, min_vals, max_vals,
             or ids_s.dtype not in (torch.int32, torch.int64):
         raise ValueError("segment_stats_sorted: ids_s must be a 1-D int32 "
                          "or int64 tensor on the values' device")
+    if not ids_s.is_contiguous():
+        raise ValueError("segment_stats_sorted: ids_s must be contiguous")
     S = num_segments
-    offsets = torch.searchsorted(
-        ids_s, torch.arange(S + 1, device=ids_s.device, dtype=ids_s.dtype))
-    dev = ids_s.device
-    sums = torch.empty((sum_vals.shape[0], S), dtype=f32, device=dev)
-    mins = torch.empty((min_vals.shape[0], S), dtype=f32, device=dev)
-    maxs = torch.empty((max_vals.shape[0], S), dtype=f32, device=dev)
+    fs, fm = sum_vals.shape[0], min_vals.shape[0]
+    # one allocation for the three results, returned as row views
+    out = torch.empty((fs + fm + max_vals.shape[0], S), dtype=f32,
+                      device=ids_s.device)
+    sums, mins, maxs = out[:fs], out[fs:fs + fm], out[fs + fm:]
+    launched = ctypes.c_int(0)
     err = _build.library().gem_segment_stats_sorted(
-        offsets.data_ptr(), sum_vals.data_ptr(), min_vals.data_ptr(),
-        max_vals.data_ptr(), sums.data_ptr(), mins.data_ptr(),
-        maxs.data_ptr(), n, S, sum_vals.shape[0], min_vals.shape[0],
-        max_vals.shape[0], _build.stream_of(ids_s))
+        ids_s.data_ptr(), int(ids_s.dtype == torch.int64),
+        sum_vals.data_ptr(), min_vals.data_ptr(), max_vals.data_ptr(),
+        sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(), n, S, fs, fm,
+        max_vals.shape[0], _build.stream_of(ids_s), ctypes.byref(launched))
     _build.check(err, "gem_segment_stats_sorted")
-    segment_stats_sorted.launches += 1
+    segment_stats_sorted.launches += launched.value
     return sums, mins, maxs
 
 
@@ -106,7 +113,8 @@ def segment_stats_sorted(ids_s, sum_vals, min_vals, max_vals,
                          window: int = 2048, with_spill: bool = True):
     """Segment statistics over PRE-SORTED ids (invalid lanes ==
     num_segments): (sums (F_s, S), mins (F_m, S) with +inf where empty,
-    maxs (F_x, S) with -inf where empty, n_spill ()).
+    maxs (F_x, S) with -inf where empty, n_spill ()).  Any of F_s, F_m,
+    F_x may be 0.
 
     Every point is reduced; `n_spill` is the TPU window's diagnostic count
     (see the module docstring), not a correction.  `with_spill=False`

@@ -208,8 +208,8 @@ def test_cli_process_imports_no_jax(tmp_path):
 
 
 def test_global_map_paths_import_no_jax(tmp_path):
-    """The loop closure, octomap and densify paths load gem_tpu's JAX-free
-    modules (msgs, octomap_io, pcd) by path, never as gem_tpu.*."""
+    """The loop closure, octomap and densify paths use the port's own
+    copies of msgs, octomap_io and pcd, never gem_tpu.*."""
     d = str(tmp_path)
     code = ("import sys; from gem_tpu_torch.io.cli import main;"
             f" main(['run', '--device', 'cpu', '--frames', '24',"

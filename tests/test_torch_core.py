@@ -95,10 +95,15 @@ def test_import_leaves_jax_out_and_tf32_off():
 
 
 def test_config_is_the_shared_source():
+    """The port's own copy of the config module (it reads nothing under
+    gem_tpu/) holds the JAX package's configuration tree."""
     from gem_tpu_torch import config as tcfg
 
     a, b = tcfg.benchmark_config(), benchmark_config()
+    assert type(a).__module__ == "gem_tpu_torch.config"
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert [f.name for f in dataclasses.fields(a)] \
+        == [f.name for f in dataclasses.fields(b)]
     assert tcfg.kitti_config().map.length == 75
     stereo = tcfg.PipelineConfig().sensor.__class__(model="stereo")
     with pytest.raises(ValueError):

@@ -10,7 +10,7 @@ Tests that need the card take the `cuda` fixture and skip without one.  On
 the card each kernel is held against its plain PyTorch version: selection
 outputs bitwise, K1's two gated sums W and WH and K3's sums (f32 sums that
 the plain version adds with atomics in no fixed order) to 1e-5 relative,
-and K2's planes to 1e-5 (slope/traver 1e-3 where normal_z > 1 - 1e-6).
+and K2's five planes bitwise.
 """
 
 import dataclasses
@@ -150,14 +150,31 @@ def test_k2_matches_plain_on_card(cuda, L):
     assert ft.plane_fit_features.launches == before + 1
     p = ft.compute_features(m, cfg.map)
     torch.cuda.synchronize()
-    assert torch.equal(k.neighbor_count, p.neighbor_count)
-    flat = p.normal_z > 1.0 - 1e-6
-    for key in ("slope", "rough", "traver", "normal_z"):
-        d = (getattr(k, key) - getattr(p, key)).abs()
-        if key in ("slope", "traver"):
-            assert not bool((d[flat] > 1e-3).any()), key
-            d = d[~flat]
-        assert float(d.max()) <= 1e-5, key
+    for key in ("neighbor_count", "slope", "rough", "traver", "normal_z"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+
+
+@pytest.mark.parametrize("L,start,valid", [
+    (3, (1, 2), 0.9), (36, (0, 0), 1.0), (100, (99, 3), 1.0),
+    (1000, (123, 457), 0.4)])
+def test_k2_bitwise_on_card_at_edges_and_full_maps(cuda, L, start, valid):
+    """Tiles that wrap, a window rolled to every edge, maps smaller than a
+    tile, fully valid neighbourhoods (K2's precomputed sums) and sparse
+    ones: all five planes equal the plain version's."""
+    rng = np.random.default_rng(L)
+    cfg = benchmark_config(length=L)
+    g = np.arange(L) * cfg.map.resolution
+    elev = (0.4 * np.sin(g[:, None] / 1.7) + 0.2 * g[None, :]
+            + 0.02 * rng.standard_normal((L, L))).astype(np.float32)
+    elev[rng.random((L, L)) >= valid] = cfg.map.invalid_elevation
+    m = init_map_state(cfg.map, cuda).replace(
+        elevation=torch.from_numpy(elev).to(cuda),
+        start=torch.tensor(start, dtype=torch.int32, device=cuda))
+    k = ft.plane_fit_features(m, cfg.map)
+    p = ft.compute_features(m, cfg.map)
+    torch.cuda.synchronize()
+    for key in ("neighbor_count", "slope", "rough", "traver", "normal_z"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
 
 
 def test_step_on_card_matches_cpu(cuda):
@@ -190,7 +207,8 @@ def test_k3_matches_plain_on_card(cuda, n, S, clustered, fsz):
                                fm=fsz[1], fx=fsz[2])
     before = sst.segment_stats_sorted.launches
     got = sst.segment_stats_sorted(ids, sv, mv, xv, S)
-    assert sst.segment_stats_sorted.launches == before + 1
+    # one launch per four columns
+    assert sst.segment_stats_sorted.launches == before + (sum(fsz) + 3) // 4
     want = sst.segment_stats_sorted_plain(ids, sv, mv, xv, S)
     mag = sst.segment_stats_sorted_plain(ids, sv.abs(), mv, xv, S)[0]
     torch.cuda.synchronize()
@@ -198,6 +216,56 @@ def test_k3_matches_plain_on_card(cuda, n, S, clustered, fsz):
     # sums relative to the sum of their terms' magnitudes
     assert bool(((got[0] - want[0]).abs() <= 1e-5 * mag).all())
     assert int(got[3]) == int(sst.spill_count(ids, S))
+
+
+@pytest.mark.parametrize("layout", ["one_segment", "long_runs",
+                                    "gaps", "all_padding", "no_points",
+                                    "three_points_one_cell",
+                                    "four_points_first_two_share",
+                                    "sparse_blocks"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_k3_adversarial_layouts_on_card(cuda, layout, dtype):
+    """Layouts that stress K3's owners (a block owns 2048 segments and
+    cuts its points into 8 warp parts by position): one segment holding
+    every point, runs of 40-900 points straddling block edges, empty head
+    and tail gaps, every lane padding, no point at all; blocks of 1 to 7
+    points with repeated ids, which leave warp parts empty between two
+    carries of one run; and (0, N) roles."""
+    rng = np.random.default_rng(3)
+    S = 10000
+    if layout == "one_segment":
+        ids = np.full(50000, 4321)
+    elif layout == "long_runs":
+        heads = [255, 256, 511, 2047, 2048, 4095, 9999]
+        ids = np.concatenate([np.repeat(heads, rng.integers(40, 900, 7)),
+                              np.full(33, S)])
+    elif layout == "three_points_one_cell":
+        ids = np.full(3, 4321)
+    elif layout == "four_points_first_two_share":
+        ids = np.array([4321, 4321, 4322, 4400, S, S])
+    elif layout == "sparse_blocks":
+        # blocks of 3 to 7 points, cell offsets within each block
+        cells = [[0, 0, 0], [0, 0, 1, 2], [7] * 5, [0, 0, 1, 1, 2, 2],
+                 [0, 3, 3, 3, 3, 9, 9]]
+        ids = np.concatenate([2048 * k + 1000 + np.array(c) for k, c in
+                              enumerate(cells)] + [np.full(9, S)])
+    elif layout == "gaps":
+        ids = np.concatenate([rng.integers(3000, 6000, 5000), np.full(5, S)])
+    elif layout == "all_padding":
+        ids = np.full(777, S)
+    else:
+        ids = np.zeros(0, np.int64)
+    ids = torch.from_numpy(np.sort(ids)).to(cuda, dtype)
+    n = ids.shape[0]
+    cols = [torch.from_numpy(rng.normal(size=(f, n)).astype(np.float32))
+            .to(cuda) for f in (2, 0, 1)]
+    got = sst.segment_stats_sorted(ids, *cols, S, with_spill=False)
+    want = sst.segment_stats_sorted_plain(ids, *cols, S)
+    mag = sst.segment_stats_sorted_plain(ids, cols[0].abs(), *cols[1:], S)[0]
+    torch.cuda.synchronize()
+    assert tuple(got[1].shape) == (0, S)
+    assert torch.equal(got[2], want[2])
+    assert bool(((got[0] - want[0]).abs() <= 1e-5 * mag).all())
 
 
 def test_k3_rejects_bad_shapes(cuda):

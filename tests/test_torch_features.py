@@ -205,3 +205,28 @@ def test_acos_and_cos_differ_by_ulps_on_the_same_input(t_op, np_op, lo, hi,
     assert (np.abs(t - ref) / ulp).max() <= ulp_each
     apart = np.abs(j - t) / ulp
     assert 0 < apart.max() <= ulp_apart and (apart > 0).mean() > 0.01
+
+
+@pytest.mark.parametrize("res", [0.05, 0.1, 0.15, 0.2, 0.25, 0.3])
+def test_k2_offset_table_is_the_plain_versions_constants(res):
+    """K2's host table holds, bitwise, the float32 terms `compute_features`
+    adds for each offset (`m * cx` etc. with m = 1) and their sums over all
+    25 offsets in its (i, j) order: what the kernel adds where every
+    neighbour is valid."""
+    tab = torch.from_numpy(tft._offset_table(res))
+    one = torch.ones((), dtype=torch.float32)
+    keys = ("Sx", "Sy", "Sxx", "Syy", "Sxy")
+    acc = {k: torch.zeros((), dtype=torch.float32) for k in keys}
+    for a, i in enumerate(range(-2, 3)):
+        assert torch.equal(tab[a], one * (i * res))
+        assert torch.equal(tab[5 + a], one * ((i * res) * (i * res)))
+        for b, j in enumerate(range(-2, 3)):
+            cx, cy = i * res, j * res
+            assert torch.equal(tab[10 + 5 * a + b], one * (cx * cy))
+            acc["Sx"] += one * cx
+            acc["Sy"] += one * cy
+            acc["Sxx"] += one * (cx * cx)
+            acc["Syy"] += one * (cy * cy)
+            acc["Sxy"] += one * (cx * cy)
+    for n, k in enumerate(keys):
+        assert torch.equal(tab[35 + n], acc[k]), k

@@ -118,3 +118,23 @@ def test_pad_sort_is_one_stable_sort():
     assert ti.shape == (1024,) and tc.shape == (2, 1024)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("roles", [(0, 0, 1), (0, 2, 0), (2, 0, 1),
+                                   (0, 0, 0)])
+def test_empty_roles_give_empty_results(roles):
+    """A (0, N) stack for a role returns a (0, S) result, and the other
+    roles' results equal those of a call with every role filled: what
+    `fuse_pallas` passes for the roles whose results it drops."""
+    rng = np.random.default_rng(11)
+    n, S = 3000, 900
+    ids = np.sort(np.where(rng.random(n) < 0.9, rng.integers(0, S, n), S))
+    t_ids = torch.from_numpy(ids.astype(np.int32))
+    full = [torch.from_numpy(rng.normal(size=(2, n)).astype(np.float32))
+            for _ in range(3)]
+    cols = [c[:f] for c, f in zip(full, roles)]
+    got = tss.segment_stats_sorted(t_ids, *cols, S, with_spill=False)
+    want = tss.segment_stats_sorted(t_ids, *full, S, with_spill=False)
+    for g, w, f in zip(got[:3], want[:3], roles):
+        assert tuple(g.shape) == (f, S)
+        assert torch.equal(g, w[:f])
