@@ -41,11 +41,24 @@ host's launch overhead is left out):
      a loop-closure re-stitch, densify at orders 2 and 5 on one slot, the
      (512, 512, 128) voxel pyramid of phase 8's global cloud with its .bt
      and .ot files, and the DiSCO signatures of all 64 slots, each on the
-     card and on the CPU from the same inputs, with both times.
+     card and on the CPU from the same inputs, with both times;
+ 11. the fleet: four flagship robots (131072-point frames, uneven point
+     counts and speeds, 10 frames) through `fleet_step` on the stream path,
+     each robot bitwise a separate ElevationPipeline on its frames, K1 and
+     K2 launched once per robot and frame; the same at L=256 on the pallas
+     path (K3 five times per robot and frame); then the README's
+     loop-detect command (`fleet --robots 2 --frames 80 --world-seed 3
+     --drift-yaw 8 --drift-x 1.0 --loop-detect --publish-interpr`) on the
+     card and on the CPU, the same loops and pairs;
+ 12. an NCCL process group of one on the card: the sharded loop closure at
+     the flagship ring against the same call over a gloo group on the CPU,
+     the halo-exchanged stencil at L=1000 against K2, and a sharded
+     checkpoint round trip of phase 11's fleet state.  A ring of several
+     cards cannot run on a one-card machine; the phase line says so.
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
-flagship step medians, one JSON line of per-kernel results, the nvidia-smi
-line again, and the last line {"ok": true, "device": {...}}.  Any failure
+flagship step and fleet-frame medians, one JSON line of per-kernel results,
+the nvidia-smi line again, and the last line {"ok": true, "device": {...}}.  Any failure
 raises: the script exits non-zero and prints no result.  It imports no jax.
 
 With `--old DIR`, phases 4 and 5 also time an earlier version of K2 and K3:
@@ -1170,6 +1183,229 @@ def phase_global_map(dev, cloud):
           flush=True)
 
 
+def single_pipelines(cfg, streams, dev, backend):
+    """Each robot's frames through an ElevationPipeline of its own, with
+    the fleet's config: the reference a fleet robot must equal."""
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.multirobot.fleet import fleet_effective_config
+
+    states = []
+    for frames in streams:
+        pipe = ElevationPipeline(fleet_effective_config(cfg), device=dev,
+                                 fuse_backend=backend)
+        for f in frames:
+            pipe.process(f)
+        states.append(pipe.state)
+    return states
+
+
+def fleet_run(cfg, streams, dev, backend):
+    """The streams through `fleet_step`, every launch count set to 0 just
+    before and read just after.  Returns (fleet state, launches, per-frame
+    ms, peak device memory)."""
+    from gem_tpu_torch.multirobot.fleet import (fleet_step, make_fleet_state,
+                                                stack_frames)
+
+    R, T = len(streams), len(streams[0])
+    fleet = make_fleet_state(cfg, R, dev)
+    stacked = [stack_frames([s[t] for s in streams]) for t in range(T)]
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    times = []
+    for frames in stacked:
+        t0 = time.perf_counter()
+        fleet, _ = fleet_step(fleet, frames, cfg, fuse_backend=backend)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return fleet, launches, times, torch.cuda.max_memory_allocated()
+
+
+def fleet_equals_singles(fleet, singles, what):
+    """Every leaf of each fleet robot bitwise its single pipeline's."""
+    from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    for r, single in enumerate(singles):
+        a = tree_leaves(single)
+        b = tree_leaves(tree_map(lambda x: x[r], fleet))
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        fail_unless(not bad, f"{what}: robot {r} differs from its single "
+                    f"pipeline in {bad}")
+
+
+def phase_fleet(dev):
+    """Phase 11: four robots of the flagship (1000^2 cells, 131072-point
+    frames with uneven point counts, 10 frames at 1.2-1.5 m per frame, so
+    each robot passes the 10 m keyframe distance once) through
+    `fleet_step` on the stream path, each robot bitwise a separate
+    ElevationPipeline on its frames; then a 4-robot fleet at L=256 on the
+    pallas path.  Returns (fleet state, its config, launches of both
+    fleets)."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.io.replay import synthetic_frames
+
+    R, T = 4, 10
+    out = {}
+    for backend, cfg, n_pts in (
+            ("stream", benchmark_config(), lambda r: 131072 - 16384 * r),
+            ("pallas", benchmark_config(length=256, max_points=16384),
+             lambda r: 16384 - 2048 * r)):
+        streams = [[f for f, _, _ in synthetic_frames(
+            cfg, T, n_points=n_pts(r), speed=1.2 + 0.1 * r, seed=10 + r,
+            device=dev)] for r in range(R)]
+        fleet, launches, times, peak = fleet_run(cfg, streams, dev, backend)
+        per = {"stream": (1, 1, 0), "pallas": (0, 1, 5)}[backend]
+        want = {k: n * R * T for k, n in zip(
+            ("fuse_stream_aggregate", "plane_fit_features",
+             "segment_stats_sorted"), per)}
+        fail_unless(launches == want, f"fleet {backend}: launch counts "
+                    f"{launches}, expected {want}")
+        fleet_equals_singles(fleet, single_pipelines(cfg, streams, dev,
+                                                     backend),
+                             f"fleet {backend}")
+        fused = (fleet.map.elevation != cfg.map.invalid_elevation).sum(
+            dim=(-2, -1)).tolist()
+        fail_unless(min(fused) > 0 and int(fleet.submaps.num_submaps.min())
+                    >= 1, f"fleet {backend}: fused {fused}, submaps "
+                    f"{fleet.submaps.num_submaps.tolist()}")
+        med = statistics.median(times[1:])
+        print(f"phase 11 fleet {backend} R={R} L={cfg.map.length} "
+              f"P={cfg.max_points} points={[n_pts(r) for r in range(R)]} "
+              f"{T} frames: ok robots_vs_single_pipelines=bitwise "
+              f"launches={launches} fleet_frame_ms_median(2..{T})={med:.3f} "
+              f"per_robot_ms={med / R:.3f} first_frame_ms={times[0]:.1f} "
+              f"max_memory_allocated={peak} per_robot_fused_cells={fused} "
+              f"num_submaps={fleet.submaps.num_submaps.tolist()} "
+              f"dropped={fleet.submaps.dropped.tolist()}", flush=True)
+        out[backend] = (fleet, cfg, launches, med)
+        del streams
+    return out
+
+
+def phase_fleet_cli(dev):
+    """Phase 11, the CLI: the README's loop-detect command on the card and
+    on the CPU; the same loops and pairs."""
+    cmd = ["fleet", "--robots", "2", "--frames", "80", "--world-seed", "3",
+           "--drift-yaw", "8", "--drift-x", "1.0", "--loop-detect"]
+    got = {}
+    with tempfile.TemporaryDirectory() as d:
+        for side in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            rc, out = run_cli([*cmd, "--device", side, "--publish-interpr",
+                               os.path.join(d, f"{side}.npz")])
+            dt = time.perf_counter() - t0
+            fail_unless(rc == 0 and "fleet of 2 robots: 80 frames" in out,
+                        f"fleet cli {side}: rc {rc}\n{out[-2000:]}")
+            stats = json.loads(out.split("loop-detect: ")[1].splitlines()[0])
+            got[side] = (stats, dt, out.split("per-robot fused cells: ")[1]
+                         .splitlines()[0])
+    (sd, td, fd), (sc, tc, fc) = got[dev.type], got["cpu"]
+    fail_unless(sd["n_loops"] == sc["n_loops"] >= 1
+                and sorted(map(tuple, sd["pairs"]))
+                == sorted(map(tuple, sc["pairs"])),
+                f"fleet cli: card {sd} vs cpu {sc}")
+    print(f"phase 11 fleet cli loop-detect: ok card_s={td:.2f} cpu_s="
+          f"{tc:.2f} fused card={fd} cpu={fc} card={json.dumps(sd)} "
+          f"cpu={json.dumps(sc)}", flush=True)
+
+
+def phase_distributed(dev, fleet, fleet_cfg):
+    """Phase 12: an NCCL process group of one on the card.  The sharded loop
+    closure at the flagship ring against the same call on a gloo CPU group;
+    the sharded stencil at L=1000 against K2 on the card; a sharded
+    checkpoint round trip of phase 11's fleet state.  A ring of several
+    cards needs a machine with several cards."""
+    import torch.distributed as dist
+
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.global_map.sharded import (apply_sharded_loop_closure,
+                                                  shard_store)
+    from gem_tpu_torch.io.checkpoint import (load_checkpoint_sharded,
+                                             save_checkpoint_sharded)
+    from gem_tpu_torch.kernels import features as ft
+    from gem_tpu_torch.multirobot import distributed as mdist
+    from gem_tpu_torch.multirobot.spatial import (place_row_sharded,
+                                                  sharded_features)
+    from gem_tpu_torch.utils.tree import tree_leaves
+
+    cfg = benchmark_config()
+    K = cfg.submap.max_submaps
+    res = cfg.map.resolution
+    with tempfile.TemporaryDirectory() as d:
+        mdist.initialize(os.path.join(d, "store"), 1, 0, backend="nccl")
+        try:
+            gloo = dist.new_group([0], backend="gloo")
+            x = torch.arange(1 << 20, dtype=torch.float32, device=dev)
+            fail_unless(bool(torch.equal(mdist.ring_shift(x), x)),
+                        "distributed: world-1 ring_shift is not a copy")
+
+            # --- sharded loop closure, NCCL on the card vs gloo on the CPU
+            store_d, poses = global_map_store(cfg, dev)
+            store_c, _ = global_map_store(cfg, torch.device("cpu"))
+            rng = np.random.default_rng(1)
+            opt = poses.copy()
+            opt[1:, :2] += res * rng.integers(-3, 4, (K - 1, 2))
+            apply_sharded_loop_closure(shard_store(store_d), cfg, opt)
+            (new_d, st_d), lc_ms = timed(lambda: apply_sharded_loop_closure(
+                shard_store(store_d), cfg, opt), True)
+            (new_c, st_c), lc_cpu_ms = timed(
+                lambda: apply_sharded_loop_closure(shard_store(store_c, gloo),
+                                                   cfg, opt, gloo), False)
+            fail_unless(st_d == st_c and st_d["n_corrected"] == K
+                        and st_d["n_cells_fused"] > 0,
+                        f"sharded loop closure: stats {st_d} vs {st_c}")
+            lc_err = {k: float((getattr(new_d.slots, k).cpu()
+                                - getattr(new_c.slots, k)).abs().max())
+                      for k in ("x", "y", "z", "variance")}
+            fail_unless(lc_err["x"] == 0.0 and lc_err["y"] == 0.0
+                        and lc_err["z"] <= 1e-5
+                        and lc_err["variance"] <= 1e-5,
+                        f"sharded loop closure: card vs cpu {lc_err}")
+
+            # --- halo stencil at L=1000 vs K2 (geographic plane, start 0)
+            m = terrain_map(cfg, dev)
+            holes = torch.from_numpy(np.random.default_rng(12).random(
+                m.elevation.shape) < 0.2).to(dev)
+            m = m.replace(start=torch.zeros_like(m.start),
+                          elevation=torch.where(holes, -10.0, m.elevation))
+            fn = sharded_features(cfg.map)
+            plane = place_row_sharded(m.elevation)
+            sh = fn(plane)
+            k2 = ft.plane_fit_features(m, cfg.map)
+            torch.cuda.synchronize()
+            st_err = {k: float((a - getattr(k2, k)).abs().max())
+                      for k, a in zip(("slope", "rough", "traver"), sh)}
+            fail_unless(max(st_err.values()) <= 1e-5,
+                        f"sharded stencil vs K2: {st_err}")
+            st_ms = cuda_ms(lambda: fn(plane), 5)
+            k2_ms = cuda_ms(lambda: ft.plane_fit_features(m, cfg.map), 20)
+
+            # --- sharded checkpoint of phase 11's fleet
+            R = fleet.frame_idx.shape[0]
+            ck = os.path.join(d, "ck")
+            _, save_ms = timed(lambda: save_checkpoint_sharded(ck, fleet),
+                               True)
+            back, load_ms = timed(lambda: load_checkpoint_sharded(
+                ck, fleet_cfg, range(R), device=dev), True)
+            a, b = tree_leaves(fleet), tree_leaves(back)
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            fail_unless(not bad, f"sharded checkpoint: {bad} differ")
+            nbytes = sum(v.numel() * v.element_size() for v in a.values())
+        finally:
+            mdist.shutdown()
+    print(f"phase 12 distributed nccl world=1 (a multi-card ring needs "
+          f"several cards: not run on this one-card machine): ok "
+          f"sharded_loop_closure K={K} stats={json.dumps(st_d)} "
+          f"card_vs_gloo_cpu_max_abs_err={lc_err} ms={lc_ms:.3f} "
+          f"gloo_cpu_ms={lc_cpu_ms:.3f}; halo_stencil L={cfg.map.length} "
+          f"vs K2 max_abs_err={st_err} ms={st_ms:.4f} k2_eager_ms="
+          f"{k2_ms:.4f}; checkpoint R={R} bytes={nbytes} bitwise "
+          f"save_ms={save_ms:.1f} load_ms={load_ms:.1f}", flush=True)
+
+
 def kernel_wrappers():
     """Every kernel wrapper of the port, by name: each counts its launches
     in `.launches`."""
@@ -1279,7 +1515,6 @@ def main():
     print(f"phase 2 build: ok nvcc_s={nvcc_s:.2f} total_s="
           f"{time.perf_counter() - t0:.2f} {path}", flush=True)
     old = Earlier(args.old) if args.old else None
-
     k1, prior = phase_k1(benchmark_config, dev)
     k3, k3_adv_err, flagship_frame = phase_k3(benchmark_config, dev, old)
     phase_backends(*flagship_frame)
@@ -1304,6 +1539,14 @@ def main():
     phase_cli(dev)
     phase_global_map_cli(dev)
     phase_global_map(dev, cloud)
+    del cloud
+    fleets = phase_fleet(dev)
+    phase_fleet_cli(dev)
+    phase_distributed(dev, *fleets["stream"][:2])
+    fleet_launches = {**fleets["stream"][2], "segment_stats_sorted":
+                      fleets["pallas"][2]["segment_stats_sorted"]}
+    fleet_ms = {k: v[3] for k, v in fleets.items()}
+    del fleets
 
     n_frames = 30
     k1_main = next(r for r in k1 if r[0] == "131k")
@@ -1315,6 +1558,7 @@ def main():
          "replaces": "gem_tpu/kernels/fuse_stream.py:521, :213, :757",
          "launches": launches["fuse_stream_aggregate"],
          "launches_per_frame": launches["fuse_stream_aggregate"] / n_frames,
+         "fleet_launches": fleet_launches["fuse_stream_aggregate"],
          "max_abs_err": max(r[1] for r in k1),
          "ms": k1_main[2], "plain_ms": k1_main[3],
          "bound_ms": k1_main[4][0], "bound_by": k1_main[4][1],
@@ -1324,6 +1568,7 @@ def main():
          "replaces": "gem_tpu/kernels/features_pallas.py:42",
          "launches": launches["plane_fit_features"],
          "launches_per_frame": launches["plane_fit_features"] / n_frames,
+         "fleet_launches": fleet_launches["plane_fit_features"],
          "max_abs_err": 0.0, "ms": k2_main[1], "plain_ms": k2_main[2],
          "bound_ms": k2_main[3], "bound_by": k2_main[4],
          "library_ms": None, "eager_ms": k2_main[5]},
@@ -1333,6 +1578,7 @@ def main():
          "launches": launches_pallas["segment_stats_sorted"],
          "launches_per_frame":
              launches_pallas["segment_stats_sorted"] / n_frames,
+         "fleet_launches": fleet_launches["segment_stats_sorted"],
          "max_abs_err": max(max(e for e, _ in k3.values()), k3_adv_err),
          "ms": k3_main["kernel"], "plain_ms": k3_main["plain"],
          "bound_ms": k3_main["bound"], "bound_by": "bytes",
@@ -1340,7 +1586,9 @@ def main():
          "wrapper_ms": k3_main["wrapper"]},
     ]
     print(f"flagship step_ms_median stream={step_stream:.3f} "
-          f"pallas={step_pallas:.3f}", flush=True)
+          f"pallas={step_pallas:.3f} fleet_frame_ms_median(R=4) "
+          f"stream={fleet_ms['stream']:.3f} pallas(L=256)="
+          f"{fleet_ms['pallas']:.3f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 
 from gem_tpu_torch.mapping.pipeline import PipelineState, init_pipeline_state
+from gem_tpu_torch.utils.device import resolve_device
+from gem_tpu_torch.utils.tree import tree_leaves
 
 # Leaves that may legitimately be absent from older checkpoints (added after
 # the npz schema shipped) and whose init values are safe substitutes.  Any
@@ -26,15 +28,8 @@ from gem_tpu_torch.mapping.pipeline import PipelineState, init_pipeline_state
 _OPTIONAL_LEAF_TOKENS = ("staging", "kf_ids")
 
 
-def _flatten(obj, prefix: str = "") -> dict:
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
-            out.update(_flatten(v, f"{prefix}{f.name}/"))
-        else:
-            out[prefix + f.name] = v.detach().cpu().numpy()
-    return out
+def _flatten(obj) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in tree_leaves(obj).items()}
 
 
 def _rebuild(template, leaves: dict, device, prefix: str = ""):
@@ -56,10 +51,11 @@ def save_checkpoint(path: str, state: PipelineState,
     np.savez_compressed(path, **flat)
 
 
-def load_checkpoint(path: str, cfg, device="cpu"
+def load_checkpoint(path: str, cfg, device="cuda"
                     ) -> tuple[PipelineState, dict]:
     """Rebuild a PipelineState on `device` (template from cfg) plus any
     extras."""
+    device = resolve_device(device)
     data = np.load(path)
     template = init_pipeline_state(cfg, "cpu")
     leaves = _flatten(template)
@@ -94,3 +90,52 @@ def _reconstruct_kf_ids(num: int, K: int):
     s = np.arange(K)
     ids = num - 1 - ((num - 1 - s) % K) if num > 0 else np.full(K, -1)
     return np.where(ids >= 0, ids, -1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Sharded fleet states: torch.distributed.checkpoint, one shard per rank.
+
+
+def _shard_prefix(robots: range) -> str:
+    return f"robots_{robots.start}-{robots.stop}/"
+
+
+def save_checkpoint_sharded(directory: str, state: PipelineState,
+                            robots: range | None = None,
+                            group=None) -> None:
+    """Write this rank's fleet state (leading robot axis) into `directory`
+    with torch.distributed.checkpoint, every rank its own robots.  The keys
+    carry the robot range (`robots`, by default this rank's even share of
+    all ranks' robots), so each rank's tensors are distinct entries: DCP
+    would take equal keys for one replicated tensor and keep one rank's
+    copy.  Without a process group it writes one shard."""
+    import torch.distributed.checkpoint as dcp
+
+    from gem_tpu_torch.multirobot import distributed as mdist
+
+    if robots is None:
+        n = state.frame_idx.shape[0]
+        robots = mdist.local_robots(n * mdist.rank_and_size(group)[1], group)
+    prefix = _shard_prefix(robots)
+    flat = {prefix + k: v for k, v in tree_leaves(state).items()
+            if v.numel()}
+    dcp.save(flat, checkpoint_id=directory, process_group=group,
+             no_dist=not torch.distributed.is_initialized())
+
+
+def load_checkpoint_sharded(directory: str, cfg, robots: range,
+                            device="cuda", group=None) -> PipelineState:
+    """Restore the robots `robots` of a `save_checkpoint_sharded` directory
+    into a fleet template built from `fleet_effective_config(cfg)` on
+    `device`; `robots` must be a range one rank saved."""
+    import torch.distributed.checkpoint as dcp
+
+    from gem_tpu_torch.multirobot.fleet import make_fleet_state
+
+    state = make_fleet_state(cfg, len(robots), device)
+    prefix = _shard_prefix(robots)
+    flat = {prefix + k: v for k, v in tree_leaves(state).items()
+            if v.numel()}
+    dcp.load(flat, checkpoint_id=directory, process_group=group,
+             no_dist=not torch.distributed.is_initialized())
+    return state

@@ -6,6 +6,10 @@ Counterpart of gem_tpu/io/cli.py with the same flag names:
                           pipeline, re-stitch after a loop closure
                           (--keyframes / --loop-demo) and write its map
                           products (--save-octomap, --dense, ...)
+  gem_tpu_torch fleet     a robot fleet's synthetic drives through the fleet
+                          step: one process (vmap), one per card (--mesh)
+                          or one per host (--coordinator); inter-robot loop
+                          detection and re-stitch (--loop-detect)
   gem_tpu_torch selftest  the production step on --device against the
                           segment backend on the CPU; exit 0 = healthy
   gem_tpu_torch viz       render a PCD to a top-down PNG (needs matplotlib)
@@ -13,17 +17,20 @@ Counterpart of gem_tpu/io/cli.py with the same flag names:
 
 `--device {cuda,cpu}` takes the place of `--platform`; `--device cuda`
 without a card is an error, never a silent CPU run.  `--fuse-backend auto`
-means `stream`.  The `fleet` and `bench` subcommands are not ported yet
-(ROADMAP.md, Queue 1).
+means `stream`.  The `bench` subcommand is not ported (a benchmark's work,
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
+import math
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,11 +72,9 @@ def _build_config(args):
 
 
 def _device(args) -> torch.device:
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device "
-                           "(torch.cuda.is_available() is False); pass "
-                           "--device cpu to run the plain PyTorch versions")
-    return torch.device(args.device)
+    from gem_tpu_torch.utils.device import resolve_device
+
+    return resolve_device(args.device)
 
 
 def _frames(cfg, args, device):
@@ -381,6 +386,155 @@ def save_octomap(path, road, obs):
     return written
 
 
+def _drift_frame(frame, theta, txy):
+    """Premultiply a frame's believed poses by a rigid SE(2) drift (yaw
+    `theta`, translation `txy`): per-robot odometry drift for --loop-detect
+    to recover.  The pose arithmetic is the JAX CLI's, in NumPy float32."""
+    c, s = math.cos(theta), math.sin(theta)
+    Rd = np.asarray([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    D = np.eye(4, dtype=np.float32)
+    D[:3, :3] = Rd
+    D[:2, 3] = txy
+    qd = np.asarray([math.cos(theta / 2), 0, 0, math.sin(theta / 2)],
+                    np.float32)
+    q = _numpy(frame.pose_quat)
+    qn = np.asarray([
+        qd[0] * q[0] - qd[3] * q[3],
+        qd[0] * q[1] - qd[3] * q[2],
+        qd[0] * q[2] + qd[3] * q[1],
+        qd[0] * q[3] + qd[3] * q[0]], np.float32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        frame.transform.device)
+    return dataclasses.replace(
+        frame, transform=t(D @ _numpy(frame.transform)),
+        r_map_base=t(Rd @ _numpy(frame.r_map_base)),
+        t_map_base=t(Rd @ _numpy(frame.t_map_base) + D[:3, 3]),
+        track_position=t(Rd @ _numpy(frame.track_position) + D[:3, 3]),
+        pose_quat=t(qn))
+
+
+def _fleet(args, dev, mode, group_world=1, group_rank=0):
+    """Replay the fleet's synthetic drives through `fleet_step` on `dev`:
+    all robots (vmap), or this rank's share of them (mesh, distributed)."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.multirobot import distributed as mdist
+    from gem_tpu_torch.multirobot.fleet import (fleet_step, make_fleet_state,
+                                                stack_frames)
+    from gem_tpu_torch.utils.tree import tree_map
+
+    cfg = _build_config(args)
+    R = args.robots
+    backend = "stream" if args.fuse_backend == "auto" else args.fuse_backend
+    robots = mdist.local_robots(R)         # every robot without a group
+    drift = (args.drift_yaw != 0.0 or args.drift_x != 0.0
+             or args.drift_y != 0.0)
+    # --world-seed >= 0 puts every robot in the same world with its own
+    # heading (arcs that cross: the loop-detect scenario); otherwise every
+    # robot drives its own world
+    shared = args.world_seed >= 0
+    gens = [synthetic_frames(
+        cfg, args.frames, speed=args.speed,
+        seed=args.world_seed if shared else r,
+        heading=0.35 + (0.25 * r if shared else 0.0), device="cpu")
+        for r in robots]
+    state = make_fleet_state(cfg, len(robots), dev)
+    mdist.barrier("fleet_first_step")
+    t0 = time.time()
+    n, outs = 0, None
+    for frames in zip(*gens):
+        frame_list = [f for f, _, _ in frames]
+        if drift:
+            # as in the JAX CLI: every process's first robot keeps its pose
+            frame_list = [f if k == 0 else _drift_frame(
+                f, math.radians(args.drift_yaw), (args.drift_x, args.drift_y))
+                for k, f in enumerate(frame_list)]
+        stacked = tree_map(lambda x: x.to(dev), stack_frames(frame_list))
+        state, outs = fleet_step(state, stacked, cfg, backend)
+        n += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    pv = _numpy(outs.metrics["points_valid"]).tolist() if outs else []
+    fused = _numpy((state.map.elevation != cfg.map.invalid_elevation)
+                   .sum(dim=(-2, -1))).tolist()
+    if mode == "mesh" and group_world > 1:
+        gathered = [None] * group_world
+        torch.distributed.all_gather_object(gathered, (fused, pv))
+        fused = [v for g in gathered for v in g[0]]
+        pv = [v for g in gathered for v in g[1]]
+        if group_rank:
+            return 0
+    print(f"fleet of {R} robots: {n} frames in {dt:.2f}s "
+          f"({n / max(dt, 1e-9):.1f} fleet-Hz, {mode})")
+    print(f"per-robot fused cells: {fused}")
+    print(f"per-robot last-frame valid points: {pv}")
+
+    if args.loop_detect and group_world == 1 and mode != "distributed":
+        # inter-robot loops from DiSCO signatures alone, the joint pose
+        # graph and the re-stitch (the reference ships InterPR.msg to an
+        # external MR_SLAM backend)
+        from gem_tpu_torch.multirobot.loop_detect import fleet_loop_closure
+
+        _, lstats, records = fleet_loop_closure(
+            state.submaps, cfg, sim_threshold=args.loop_sim_threshold,
+            center_gate=args.loop_center_gate)
+        print("loop-detect:", json.dumps(lstats))
+        if args.publish_interpr:
+            os.makedirs(os.path.dirname(args.publish_interpr) or ".",
+                        exist_ok=True)
+            records.save(args.publish_interpr)
+            print(f"{len(records.items)} InterPR records -> "
+                  f"{args.publish_interpr}")
+    elif args.loop_detect:
+        print("loop-detect: skipped (single-host only)")
+    return 0
+
+
+def _fleet_rank(rank, args, coordinator, world, mode):
+    """One process of a multi-process fleet: join the group, run this
+    rank's robots, leave the group."""
+    from gem_tpu_torch.multirobot import distributed as mdist
+
+    dev = _device(args)
+    mdist.initialize(coordinator, world, rank,
+                     backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        dev = mdist.device()
+        if mode == "distributed":
+            print(f"process {rank}/{world}: "
+                  f"{torch.distributed.get_backend()} on {dev}", flush=True)
+        return _fleet(args, dev, mode, world, rank)
+    finally:
+        mdist.shutdown()
+
+
+def cmd_fleet(args):
+    """N-robot fleet replay.  Modes: `vmap` (every robot on one device, one
+    process), `--mesh` (one process per visible card on this host, spawned
+    here over a FileStore; one card: this process) and `--coordinator`
+    (this process is rank --process-id of --num-processes, on any host).
+    The mesh and distributed modes run the same code, each rank stepping
+    its own robots with no collective; loop detection runs only when one
+    process holds every robot."""
+    dev = _device(args)
+    if args.coordinator:
+        return _fleet_rank(args.process_id, args, args.coordinator,
+                           args.num_processes, "distributed")
+    if not args.mesh:
+        return _fleet(args, dev, "vmap")
+    # as JAX's mesh: min(devices, robots), which must divide the robots
+    world = min(torch.cuda.device_count() if dev.type == "cuda" else 1,
+                args.robots)
+    with tempfile.TemporaryDirectory() as d:
+        store = os.path.join(d, "store")
+        if world == 1:
+            return _fleet_rank(0, args, store, 1, "mesh")
+        torch.multiprocessing.spawn(_fleet_rank,
+                                    args=(args, store, world, "mesh"),
+                                    nprocs=world)
+    return 0
+
+
 def cmd_selftest(args):
     """Deployment health check: replay a short synthetic sequence through
     the production step (`stream`: K1 + K2 on a card) on --device, compare
@@ -399,7 +553,8 @@ def cmd_selftest(args):
         body_filter=C.BodyFilterConfig(mode="none"),
         max_points=4096)
     frames = [f for f, _, _ in synthetic_frames(cfg, 6, n_points=4096,
-                                                speed=0.4, seed=0)]
+                                                speed=0.4, seed=0,
+                                                device="cpu")]
     planes = {}
     for name, where, backend in (("dev", dev, "stream"),
                                  ("cpu", torch.device("cpu"), "segment")):
@@ -547,6 +702,47 @@ def main(argv=None):
                     help="warn when the inter-frame gap exceeds this many "
                          "seconds (the reference's min_update_rate watchdog)")
     rp.set_defaults(fn=cmd_run)
+
+    fp = sub.add_parser("fleet", help="multi-robot replay: one process for "
+                                      "the fleet, or one per card / host")
+    common(fp)
+    fp.add_argument("--robots", type=int, default=4)
+    fp.add_argument("--frames", type=int, default=50)
+    fp.add_argument("--speed", type=float, default=0.5)
+    fp.add_argument("--fuse-backend", default="auto",
+                    choices=["auto", "stream", "segment", "sort", "pallas"],
+                    help="auto = stream")
+    fp.add_argument("--mesh", action="store_true",
+                    help="one process per visible card of this host, robots "
+                         "split evenly (a FileStore process group)")
+    fp.add_argument("--coordinator",
+                    help="host:port of process 0 (or a shared file path): "
+                         "join a multi-process fleet over torch.distributed "
+                         "(run the same command in every process with its "
+                         "own --process-id)")
+    fp.add_argument("--num-processes", type=int, default=1)
+    fp.add_argument("--process-id", type=int, default=0)
+    fp.add_argument("--loop-detect", action="store_true",
+                    help="after the replay, detect inter-robot loops from "
+                         "DiSCO signatures, optimize the joint pose graph "
+                         "and re-stitch (no external poses)")
+    fp.add_argument("--loop-sim-threshold", type=float, default=0.93)
+    fp.add_argument("--loop-center-gate", type=float, default=None,
+                    help="candidate colocation gate in meters (default "
+                         "0.4 * overlap_radius); odometry drift adds to "
+                         "the believed keyframe distance, so widen this "
+                         "when expecting more inter-robot drift")
+    fp.add_argument("--world-seed", type=int, default=-1,
+                    help=">=0: all robots share this world (per-robot "
+                         "headings) so trajectories cross")
+    fp.add_argument("--drift-yaw", type=float, default=0.0,
+                    help="inject this odometry yaw drift (degrees) into "
+                         "robots 1..N-1")
+    fp.add_argument("--drift-x", type=float, default=0.0)
+    fp.add_argument("--drift-y", type=float, default=0.0)
+    fp.add_argument("--publish-interpr",
+                    help="save detected loops as an InterPRs npz record")
+    fp.set_defaults(fn=cmd_fleet)
 
     sp = sub.add_parser("selftest", help="health check: the production "
                                          "step on --device vs the segment "

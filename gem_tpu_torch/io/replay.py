@@ -23,6 +23,7 @@ import torch
 
 from gem_tpu_torch import native
 from gem_tpu_torch.mapping.pipeline import Frame, frame_from_numpy
+from gem_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -73,17 +74,23 @@ def synthetic_frames(cfg, n_frames: int, n_points: Optional[int] = None,
                      speed: float = 1.0, noise: float = 0.01, seed: int = 0,
                      max_range: Optional[float] = None,
                      heading: float = 0.35, sensor_height: float = 1.8,
-                     device="cpu") -> Iterator[tuple]:
+                     device="cuda") -> Iterator[tuple]:
     """Yield (Frame, robot_xy, world) replaying a drive across the world:
     a gentle arc at `speed` m/frame, one simulated scan per frame, points
-    in the sensor frame (identity rotation, `sensor_height` above ground)."""
+    in the sensor frame (identity rotation, `sensor_height` above ground).
+    The device is checked at the call, before the first frame."""
+    return _drive(cfg, n_frames, n_points, speed, noise, seed, max_range,
+                  heading, sensor_height, resolve_device(device))
+
+
+def _drive(cfg, n_frames, n_points, speed, noise, seed, max_range, heading,
+           sensor_height, dev):
     world = SyntheticWorld(seed=seed)
     rng = np.random.default_rng(seed + 1)
     P = cfg.max_points
     n_points = min(n_points or min(P, 8192), P)
     if max_range is None:
         max_range = cfg.map.length * cfg.map.resolution * 0.45
-    dev = torch.device(device)
     t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
 
     x, y, th = 0.0, 0.0, heading
@@ -135,12 +142,13 @@ def synthetic_frames(cfg, n_frames: int, n_points: Optional[int] = None,
 
 
 def pad_frame(cfg, points, intensity=None, colors=None, transform=None,
-              track_position=None, device="cpu", **kw) -> Frame:
+              track_position=None, device="cuda", **kw) -> Frame:
     """Build a Frame from ragged NumPy inputs, padding to cfg.max_points.
 
     When cfg.prefilter.leaf > 0 the native voxel-grid pre-filter runs first
     (skipped when per-point colors are already attached, as in
     gem_tpu)."""
+    device = resolve_device(device)
     pf = cfg.prefilter
     if pf.leaf > 0 and colors is None:
         points, intensity = native.voxel_filter(
@@ -176,7 +184,7 @@ def pad_frame(cfg, points, intensity=None, colors=None, transform=None,
                                   colors=col, **fields), device)
 
 
-def load_npz_frame(cfg, path, device="cpu") -> Frame:
+def load_npz_frame(cfg, path, device="cuda") -> Frame:
     """Frame from one npz record (a path, or raw bytes from a prefetcher).
 
     Schema (KITTI/YQ converter output): points (N,3) f32 sensor frame,

@@ -45,6 +45,8 @@ from gem_tpu_torch.motion.updater import (MotionState, apply_process_noise,
                                           init_motion_state, process_noise)
 from gem_tpu_torch.render.products import orthomosaic
 from gem_tpu_torch.sensors.models import jacobian_ingredients
+from gem_tpu_torch.utils.device import resolve_device
+from gem_tpu_torch.utils.tree import tree_map
 
 FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
 
@@ -277,15 +279,16 @@ def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg,
 
 
 class ElevationPipeline:
-    """Frames in, state + features out, on one device."""
+    """Frames in, state + features out, on one device (the card unless
+    `device="cpu"`)."""
 
-    def __init__(self, cfg, device="cpu", fuse_backend: str = "stream"):
+    def __init__(self, cfg, device="cuda", fuse_backend: str = "stream"):
         from gem_tpu_torch.config import validate_config
 
         validate_config(cfg)
         _check_backend(fuse_backend)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.fuse_backend = fuse_backend
         self.state = init_pipeline_state(cfg, self.device)
         self.last_outputs: Optional[StepOutputs] = None
@@ -320,14 +323,6 @@ def _from_tree(cls, tree, device):
     return cls(**kw)
 
 
-def _to_tree(obj):
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: _to_tree(getattr(obj, f.name))
-            for f in dataclasses.fields(obj)})
-    return obj.detach().cpu().numpy().copy()
-
-
 def state_from_numpy(tree, device) -> PipelineState:
     """Port PipelineState from any tree with the same field names and NumPy
     leaves (a JAX PipelineState mapped through np.asarray, or the result of
@@ -338,7 +333,7 @@ def state_from_numpy(tree, device) -> PipelineState:
 def state_to_numpy(state: PipelineState) -> PipelineState:
     """The same dataclasses with NumPy leaves (inverse of
     `state_from_numpy`)."""
-    return _to_tree(state)
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)
 
 
 def frame_from_numpy(frame, device) -> Frame:

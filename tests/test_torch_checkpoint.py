@@ -48,7 +48,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, store_ortho):
         js, _ = jf(js, f)
     path = str(tmp_path / "jax.npz")
     jck.save_checkpoint(path, js, extra={"note": np.int32(7)})
-    ts, extra = tck.load_checkpoint(path, cfg)
+    ts, extra = tck.load_checkpoint(path, cfg, device="cpu")
     assert int(extra["note"]) == 7 and int(ts.frame_idx) == 3
     assert int(ts.submaps.num_submaps) >= 1
     _compare(js, ts, "loaded")
@@ -66,7 +66,7 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
     tck.save_checkpoint(path, ts)
     js, _ = jck.load_checkpoint(path, cfg)
     _compare(js, ts, "loaded")
-    back, _ = tck.load_checkpoint(path, cfg)
+    back, _ = tck.load_checkpoint(path, cfg, device="cpu")
     for a, b in zip(tck._flatten(back).values(), tck._flatten(ts).values()):
         np.testing.assert_array_equal(a, b)
     js, _ = jf(js, frames[3])
@@ -84,10 +84,11 @@ def test_missing_leaves(tmp_path):
     np.savez(tmp_path / "old.npz", **old)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        got, _ = tck.load_checkpoint(str(tmp_path / "old.npz"), cfg)
+        got, _ = tck.load_checkpoint(str(tmp_path / "old.npz"), cfg,
+                                  device="cpu")
     assert any("kf_ids" in str(x.message) for x in w)
     assert torch.equal(got.submaps.kf_ids, ts.submaps.kf_ids)
     bad = {k: v for k, v in flat.items() if k != "map/elevation"}
     np.savez(tmp_path / "bad.npz", **bad)
     with pytest.raises(KeyError, match="map/elevation"):
-        tck.load_checkpoint(str(tmp_path / "bad.npz"), cfg)
+        tck.load_checkpoint(str(tmp_path / "bad.npz"), cfg, device="cpu")

@@ -399,7 +399,7 @@ def test_synthetic_frames_identical_to_jax_package():
     ja = list(jreplay.synthetic_frames(cfg, 3, n_points=900, speed=0.7,
                                        seed=5))
     tb = list(treplay.synthetic_frames(cfg, 3, n_points=900, speed=0.7,
-                                       seed=5))
+                                       seed=5, device="cpu"))
     for (jf, jxy, jw), (tf, txy, tw) in zip(ja, tb):
         assert jxy == txy
         for f in dataclasses.fields(tf):

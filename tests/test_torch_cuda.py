@@ -14,6 +14,7 @@ and K2's five planes bitwise.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -185,7 +186,7 @@ def test_step_on_card_matches_cpu(cuda):
     gpu = ElevationPipeline(cfg, device=cuda)
     cpu = ElevationPipeline(cfg, device="cpu")
     for f, _, _ in synthetic_frames(cfg, 5, n_points=4000, speed=0.4,
-                                    seed=1, max_range=3.0):
+                                    seed=1, max_range=3.0, device="cpu"):
         cpu.process(f)
         gpu.process(type(f)(**{k: None if v is None else v.to(cuda)
                                for k, v in vars(f).items()}))
@@ -286,7 +287,7 @@ def test_fuse_backends_on_card_match_cpu(cuda, backend):
     cpu = ElevationPipeline(cfg, device="cpu", fuse_backend=backend)
     before = sst.segment_stats_sorted.launches
     for f, _, _ in synthetic_frames(cfg, 5, n_points=4000, speed=0.4,
-                                    seed=2, max_range=3.0):
+                                    seed=2, max_range=3.0, device="cpu"):
         cpu.process(f)
         gpu.process(type(f)(**{k: None if v is None else v.to(cuda)
                                for k, v in vars(f).items()}))
@@ -299,3 +300,253 @@ def test_fuse_backends_on_card_match_cpu(cuda, backend):
     assert torch.equal(a.lowest.cpu(), b.lowest)
     torch.testing.assert_close(a.traver.cpu(), b.traver, rtol=0, atol=1e-3)
     assert torch.equal(a.color.cpu(), b.color)
+
+
+def test_fleet_step_on_card_equals_single_pipelines(cuda):
+    """Four robots with uneven streams through `fleet_step` (stream path:
+    K1 and K2 once per robot and frame) against four ElevationPipelines on
+    the card: every leaf bitwise."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.multirobot.fleet import (fleet_effective_config,
+                                                fleet_step, make_fleet_state,
+                                                stack_frames)
+    from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = benchmark_config(length=64, max_points=4096)
+    cfg = cfg.replace(submap=dataclasses.replace(
+        cfg.submap, keyframe_distance=1.0, max_submaps=3, capacity=2048))
+    n, T = 4, 6
+    streams = [[f for f, _, _ in synthetic_frames(
+        cfg, T, n_points=1000 + 700 * r, speed=0.3 + 0.15 * r, seed=r,
+        max_range=3.0, device=cuda)] for r in range(n)]
+    fleet = make_fleet_state(cfg, n, device=cuda)
+    pipes = [ElevationPipeline(fleet_effective_config(cfg), device=cuda)
+             for _ in range(n)]
+    k1, k2 = fs.fuse_stream_aggregate.launches, ft.plane_fit_features.launches
+    for t in range(T):
+        fleet, _ = fleet_step(fleet, stack_frames(
+            [streams[r][t] for r in range(n)]), cfg)
+    assert fs.fuse_stream_aggregate.launches - k1 == n * T
+    assert ft.plane_fit_features.launches - k2 == n * T
+    for r in range(n):
+        for f in streams[r]:
+            pipes[r].process(f)
+        a = tree_leaves(pipes[r].state)
+        b = tree_leaves(tree_map(lambda x: x[r], fleet))
+        for key in a:
+            assert torch.equal(a[key], b[key]), (r, key)
+    assert int(fleet.submaps.num_submaps.max()) >= 1
+
+
+def test_world_one_nccl_matches_gloo_on_cpu(cuda, tmp_path):
+    """An NCCL process group of one on the card: `ring_shift` is a local
+    copy, and the sharded loop closure of a 8-slot store on the card equals
+    the same call over a gloo group on the CPU (x/y bitwise, z and variance
+    within 1e-5, the stats equal)."""
+    import torch.distributed as dist
+
+    from gem_tpu_torch.global_map import submaps as sm
+    from gem_tpu_torch.global_map.sharded import (apply_sharded_loop_closure,
+                                                  shard_store)
+    from gem_tpu_torch.multirobot import distributed as mdist
+
+    cfg = benchmark_config(length=64, max_points=4096)
+    cfg = cfg.replace(submap=dataclasses.replace(cfg.submap, max_submaps=8,
+                                                 capacity=1024))
+    rng = np.random.default_rng(0)
+    res = cfg.map.resolution
+    mdist.initialize(str(tmp_path / "store"), 1, 0, backend="nccl")
+    try:
+        gloo = dist.new_group([0], backend="gloo")
+        x = torch.arange(6, device=cuda, dtype=torch.float32)
+        assert torch.equal(mdist.ring_shift(x), x)
+        stores, poses = {}, np.zeros((8, 7), np.float32)
+        poses[:, 3] = 1.0
+        poses[:, 0] = np.arange(8) * 0.5
+        for dev in ("cpu", cuda):
+            store = sm.init_store(cfg, dev)
+            gen = np.random.default_rng(1)
+            for k in range(8):
+                C = 1024
+                f = {"x": (gen.integers(-30, 30, C) + 0.5) * res + k * 0.5,
+                     "y": (gen.integers(-30, 30, C) + 0.5) * res,
+                     "z": gen.normal(0, 0.2, C),
+                     "variance": gen.uniform(0.01, 0.99, C),
+                     "intensity": gen.random(C), "traver": gen.random(C)}
+                f = {k_: torch.from_numpy(v.astype(np.float32)).to(dev)
+                     for k_, v in f.items()}
+                buf = sm.PointBuffer(
+                    **f, color=torch.zeros(C, dtype=torch.int32, device=dev),
+                    valid=torch.ones(C, dtype=torch.bool, device=dev))
+                store = sm.finalize_submap(store, buf,
+                                           torch.from_numpy(poses[k]).to(dev))
+            stores[str(dev)] = store
+        opt = poses.copy()
+        opt[1:, :2] += res * rng.integers(-2, 3, (7, 2))
+        got, st = apply_sharded_loop_closure(
+            shard_store(stores[str(cuda)]), cfg, opt)
+        ref, st_ref = apply_sharded_loop_closure(
+            shard_store(stores["cpu"], gloo), cfg, opt, gloo)
+        assert st == st_ref and st["n_cells_fused"] > 0
+        for key in ("x", "y"):
+            assert torch.equal(getattr(got.slots, key).cpu(),
+                               getattr(ref.slots, key)), key
+        for key in ("z", "variance"):
+            torch.testing.assert_close(getattr(got.slots, key).cpu(),
+                                       getattr(ref.slots, key), rtol=0,
+                                       atol=1e-5)
+    finally:
+        mdist.shutdown()
+
+
+def _ring_store(cfg, device):
+    """A full ring of cell-center patches around a 12 m loop (every pair
+    overlaps), variances in (0, 1), and the poses of its slots."""
+    from gem_tpu_torch.global_map import submaps as sm
+
+    K, C = cfg.submap.max_submaps, cfg.submap.capacity
+    res = cfg.map.resolution
+    rng = np.random.default_rng(0)
+    store = sm.init_store(cfg, device)
+    poses = np.zeros((K, 7), np.float32)
+    poses[:, 3] = 1.0
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        poses[k, :2] = 2.0 * np.cos(a), 2.0 * np.sin(a)
+        f = {"x": (np.round(poses[k, 0] / res) + rng.integers(-30, 30, C)
+                   + 0.5) * res,
+             "y": (np.round(poses[k, 1] / res) + rng.integers(-30, 30, C)
+                   + 0.5) * res,
+             "z": rng.normal(0, 0.2, C), "variance": rng.uniform(0.01, 0.99, C),
+             "intensity": rng.random(C), "traver": rng.random(C)}
+        buf = sm.PointBuffer(
+            **{key: torch.from_numpy(v.astype(np.float32)).to(device)
+               for key, v in f.items()},
+            color=torch.zeros(C, dtype=torch.int32, device=device),
+            valid=torch.from_numpy(rng.random(C) < 0.95).to(device))
+        store = sm.finalize_submap(store, buf,
+                                   torch.from_numpy(poses[k]).to(device))
+    return store, poses
+
+
+def _multi_rank_worker(rank, world, store_path, out_dir, backend, L, K, C):
+    """One rank of `world` (NCCL: one card each; gloo: the CPU): the sharded
+    loop closure over every rank against the same call over a group of one
+    on rank 0 (x/y bitwise, z/variance within 1e-5, stats equal); a mixed
+    payload around the ring in both directions; the halo stencil over every
+    rank against the unsharded plane fit (K2 on a card) within 1e-5.
+    Writes `rank<r>.ok` when every check passed."""
+    import torch.distributed as dist
+
+    from gem_tpu_torch.core.state import init_map_state
+    from gem_tpu_torch.global_map.sharded import (apply_sharded_loop_closure,
+                                                  shard_store)
+    from gem_tpu_torch.multirobot import distributed as mdist
+    from gem_tpu_torch.multirobot.spatial import (place_row_sharded,
+                                                  sharded_features)
+
+    mdist.initialize(store_path, world, rank, backend=backend, timeout_s=300)
+    try:
+        dev = mdist.device()
+        one = dist.new_group([0])
+        cfg = benchmark_config(length=L)
+        cfg = cfg.replace(submap=dataclasses.replace(
+            cfg.submap, max_submaps=K, capacity=C))
+        store, poses = _ring_store(cfg, dev)
+        opt = poses.copy()
+        opt[1:, :2] += cfg.map.resolution * np.random.default_rng(1).integers(
+            -2, 3, (K - 1, 2))
+        got, st = apply_sharded_loop_closure(shard_store(store), cfg, opt)
+        parts = {}
+        for key in ("x", "y", "z", "variance"):
+            mine = getattr(got.slots, key).contiguous()
+            parts[key] = [torch.empty_like(mine) for _ in range(world)]
+            dist.all_gather(parts[key], mine)
+        if rank == 0:
+            ref, st1 = apply_sharded_loop_closure(shard_store(store, one),
+                                                  cfg, opt, one)
+            assert st == st1 and st["n_cells_fused"] > 0, (st, st1)
+            for key, tol in (("x", 0), ("y", 0), ("z", 1e-5),
+                             ("variance", 1e-5)):
+                d = (torch.cat(parts[key]) - getattr(ref.slots, key)).abs()
+                assert float(d.max()) <= tol, (key, float(d.max()))
+        payload = [torch.full((5,), float(rank), device=dev),
+                   torch.tensor([rank % 2 == 0], device=dev),
+                   torch.full((3,), rank, dtype=torch.int64, device=dev)]
+        for d in (1, -1):
+            src = (rank - d) % world
+            a, b, c = mdist.ring_shift_tensors(payload, direction=d)
+            assert float(a[0]) == src and bool(b[0]) == (src % 2 == 0) \
+                and int(c[2]) == src, (d, a, b, c)
+        rng = np.random.default_rng(12)
+        g = np.arange(L) * cfg.map.resolution
+        elev = (0.5 * np.sin(g[:, None] / 7.0) + 0.4 * np.cos(g[None, :] / 9.0)
+                + 0.01 * rng.standard_normal((L, L))).astype(np.float32)
+        elev[rng.random((L, L)) < 0.2] = -10.0
+        m = init_map_state(cfg.map, dev).replace(
+            elevation=torch.from_numpy(elev).to(dev))
+        want = ft.plane_fit_features(m, cfg.map)
+        sh = sharded_features(cfg.map)(place_row_sharded(m.elevation))
+        rows = L // world
+        for key, v in zip(("slope", "rough", "traver"), sh):
+            w = getattr(want, key)[rank * rows:(rank + 1) * rows]
+            assert float((v - w).abs().max()) <= 1e-5, key
+        mdist.barrier("checked")
+        open(os.path.join(out_dir, f"rank{rank}.ok"), "w").close()
+    finally:
+        mdist.shutdown()
+
+
+def _run_ranks(world, tmp_path, backend, **sizes):
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        _multi_rank_worker,
+        args=(world, str(tmp_path / "store"), str(tmp_path), backend,
+              sizes["L"], sizes["K"], sizes["C"]),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + 420
+    try:
+        while not ctx.join(timeout=5):
+            assert time.monotonic() < deadline, "ranks still running"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    assert all((tmp_path / f"rank{r}.ok").exists() for r in range(world))
+
+
+def test_four_gloo_ranks_on_the_cpu(tmp_path):
+    """The four-card check's own code, on 4 gloo processes on the CPU at a
+    small size: it runs wherever the suite runs."""
+    _run_ranks(4, tmp_path, "gloo", L=64, K=8, C=512)
+
+
+def test_four_cards_nccl_ring(cuda, tmp_path):
+    """One process per card over NCCL at the flagship's ring (64 slots) and
+    map (L=1000); then `fleet --mesh` spawns one process per card and its
+    robots fuse what the one-process fleet fuses on one card."""
+    import subprocess
+    import sys
+
+    from gem_tpu_torch.kernels import _build
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    _build.build()                  # once, before the ranks load it
+    _run_ranks(4, tmp_path, "nccl", L=1000, K=64, C=32768)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "gem_tpu_torch", "fleet", "--robots", "4",
+           "--frames", "3", "--max-points", "16384"]
+    fused = []
+    for extra in (["--mesh"], []):
+        out = subprocess.run(cmd + extra, cwd=repo, capture_output=True,
+                             text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        assert ("mesh)" if extra else "vmap)") in out.stdout
+        fused.append(out.stdout.split("per-robot fused cells: ")[1]
+                     .splitlines()[0])
+    assert fused[0] == fused[1]

@@ -7,8 +7,9 @@ of a path under gem_tpu/.  It then imports every module of gem_tpu_torch
 and chip_smoke.py, converts a seeded KITTI-layout drive with the port's
 converter, and runs `python -m gem_tpu_torch run` on the CPU at the kitti
 preset over those frames (the native prefetcher, voxel filter and cell
-dedup) with an .ot octomap and a PCD map.  The native library must be the
-port's own, built under build/gem_tpu_torch/.
+dedup) with an .ot octomap and a PCD map, and `fleet` (2 robots, loop
+detection) on the CPU.  The native library must be the port's own, built
+under build/gem_tpu_torch/.
 """
 
 import os
@@ -82,6 +83,13 @@ try:
 except SystemExit as e:
     assert e.code == 0, f"run exited {e.code}"
 
+sys.argv = ["gem_tpu_torch", "fleet", "--device", "cpu", "--robots", "2",
+            "--frames", "3", "--max-points", "512", "--loop-detect"]
+try:
+    runpy.run_module("gem_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    assert e.code == 0, f"fleet exited {e.code}"
+
 from gem_tpu_torch import native
 assert native._lib is not None, "the native library was not loaded"
 path = native.library_path()
@@ -106,6 +114,8 @@ def test_port_reads_and_writes_nothing_under_gem_tpu(tmp_path):
     assert int(next(x for x in lines if x.startswith("modules")).split()[1]) \
         > 30
     assert "processed 4 frames" in out.stdout
+    assert "fleet of 2 robots: 3 frames" in out.stdout
+    assert "loop-detect: {" in out.stdout
     assert os.path.getsize(tmp_path / "x_road.ot") > 100
     assert os.path.getsize(tmp_path / "map.pcd") > 1000
     assert sorted(os.listdir(os.path.join(REPO, "gem_tpu", "native"))) \

@@ -160,7 +160,7 @@ def test_pipeline_and_scan_steps_agree():
 
     cfg = tcfg(length=32, max_points=1024)
     frames = [f for f, _, _ in tframes(cfg, 4, n_points=900, speed=0.4,
-                                       seed=2, max_range=1.5)]
+                                       seed=2, max_range=1.5, device="cpu")]
     pipe = tp.ElevationPipeline(cfg, device="cpu")
     for f in frames:
         out = pipe.process(f)
