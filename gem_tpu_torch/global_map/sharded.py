@@ -24,6 +24,8 @@ against it (`loop_closure._refuse`), gated lane by lane.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from gem_tpu_torch.global_map.loop_closure import (_refuse,
@@ -32,8 +34,6 @@ from gem_tpu_torch.global_map.loop_closure import (_refuse,
                                                    transform_submaps)
 from gem_tpu_torch.global_map.submaps import SubmapStore
 from gem_tpu_torch.multirobot import distributed as mdist
-
-_SHARDED_LC_CACHE: dict = {}
 
 
 def shard_store(store: SubmapStore, group=None) -> SubmapStore:
@@ -56,67 +56,59 @@ def shard_store(store: SubmapStore, group=None) -> SubmapStore:
         poses=cut(store.poses), kf_ids=cut(store.kf_ids))
 
 
-def sharded_loop_closure(cfg, group=None):
-    """The loop-closure body for `group`, memoised per (cfg, group): fn(
-    slots, counts, centers, poses, opt_poses, transform_mask, participates)
-    -> (slots, centers, poses, cells fused over all ranks), every argument
-    this rank's slots."""
-    key = (cfg, group)
-    hit = _SHARDED_LC_CACHE.get(key)
-    if hit is None:
-        hit = _SHARDED_LC_CACHE[key] = _build_sharded_loop_closure(cfg,
-                                                                   group)
-    return hit
-
-
-def _build_sharded_loop_closure(cfg, group):
+def _sweep(cfg, group, slots, counts, centers, poses, opt_poses,
+           transform_mask, participates):
+    """The loop-closure body on this rank's slots: local correction and
+    re-transform, then the ring sweep; -> (slots, centers, poses, cells
+    fused over all ranks)."""
     res = cfg.submap.dedup_cell_quantum or cfg.map.resolution
     radius2 = cfg.submap.overlap_radius ** 2
+    n_shards = mdist.rank_and_size(group)[1]
+    dev = slots.z.device
+    # local pose correction + re-transform: poses/centers of every
+    # participating slot, the rigid transform of all but keyframe 0
+    T = relative_transforms(opt_poses, poses)
+    eye = torch.eye(4, dtype=torch.float32, device=dev).expand_as(T)
+    T = torch.where(transform_mask[:, None, None], T, eye)
+    slots = transform_submaps(slots, T)
+    poses = torch.where(participates[:, None], opt_poses, poses)
+    centers = torch.where(participates[:, None], opt_poses[:, :2], centers)
 
-    def body(slots, counts, centers, poses, opt_poses, transform_mask,
-             participates):
-        n_shards = mdist.rank_and_size(group)[1]
-        dev = slots.z.device
-        # local pose correction + re-transform: poses/centers of every
-        # participating slot, the rigid transform of all but keyframe 0
-        T = relative_transforms(opt_poses, poses)
-        eye = torch.eye(4, dtype=torch.float32, device=dev).expand_as(T)
-        T = torch.where(transform_mask[:, None, None], T, eye)
-        slots = transform_submaps(slots, T)
-        poses = torch.where(participates[:, None], opt_poses, poses)
-        centers = torch.where(participates[:, None], opt_poses[:, :2],
-                              centers)
+    # ring sweep; pairs only among participating (corrected) slots
+    k_local = counts.shape[0]
+    lane = torch.arange(k_local, device=dev)
+    mine = (counts > 0) & participates
+    z, var = slots.z, slots.variance
+    visiting = [slots.x, slots.y, slots.z, slots.variance, slots.valid,
+                centers, participates & (counts > 0)]
+    n_fused = torch.zeros((), dtype=torch.int64, device=dev)
+    for step in range(n_shards):
+        vx, vy, vz, vv, vok, v_centers, v_part = visiting
+        for j in range(k_local):
+            d2 = ((centers - v_centers[j]) ** 2).sum(dim=1)
+            do = (d2 < radius2) & v_part[j] & mine
+            if step == 0:
+                do = do & (lane != j)
+            shape = z.shape
+            az, av, _, _, nf = _refuse(
+                z, var, slots.x, slots.y, slots.valid,
+                vz[j].expand(shape), vv[j].expand(shape),
+                vx[j].expand(shape), vy[j].expand(shape),
+                vok[j].expand(shape), res)
+            z = torch.where(do[:, None], az, z)
+            var = torch.where(do[:, None], av, var)
+            n_fused = n_fused + torch.where(do, nf, 0).sum()
+        if step + 1 < n_shards:
+            visiting = mdist.ring_shift_tensors(visiting, group)
+    total = mdist.all_reduce_sum(n_fused, group)
+    return slots.replace(z=z, variance=var), centers, poses, total
 
-        # ring sweep; pairs only among participating (corrected) slots
-        k_local = counts.shape[0]
-        lane = torch.arange(k_local, device=dev)
-        mine = (counts > 0) & participates
-        z, var = slots.z, slots.variance
-        visiting = [slots.x, slots.y, slots.z, slots.variance, slots.valid,
-                    centers, participates & (counts > 0)]
-        n_fused = torch.zeros((), dtype=torch.int64, device=dev)
-        for step in range(n_shards):
-            vx, vy, vz, vv, vok, v_centers, v_part = visiting
-            for j in range(k_local):
-                d2 = ((centers - v_centers[j]) ** 2).sum(dim=1)
-                do = (d2 < radius2) & v_part[j] & mine
-                if step == 0:
-                    do = do & (lane != j)
-                shape = z.shape
-                az, av, _, _, nf = _refuse(
-                    z, var, slots.x, slots.y, slots.valid,
-                    vz[j].expand(shape), vv[j].expand(shape),
-                    vx[j].expand(shape), vy[j].expand(shape),
-                    vok[j].expand(shape), res)
-                z = torch.where(do[:, None], az, z)
-                var = torch.where(do[:, None], av, var)
-                n_fused = n_fused + torch.where(do, nf, 0).sum()
-            if step + 1 < n_shards:
-                visiting = mdist.ring_shift_tensors(visiting, group)
-        total = mdist.all_reduce_sum(n_fused, group)
-        return slots.replace(z=z, variance=var), centers, poses, total
 
-    return body
+def sharded_loop_closure(cfg, group=None):
+    """The loop-closure body for `group`: fn(slots, counts, centers, poses,
+    opt_poses, transform_mask, participates) -> (slots, centers, poses,
+    cells fused over all ranks), every argument this rank's slots."""
+    return functools.partial(_sweep, cfg, group)
 
 
 def apply_sharded_loop_closure(store: SubmapStore, cfg, opt_poses,

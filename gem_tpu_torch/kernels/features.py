@@ -96,23 +96,21 @@ def features_from_moments(acc: dict, interior_elev, cfg):
             torch.where(ok, nz, 1.0), ok)
 
 
-def compute_features(state: MapState, cfg) -> FeatureMaps:
-    """Plain PyTorch version of K2 (`cfg` is a MapConfig)."""
-    L = cfg.length
+def accumulate_moments(z_at, row_ok, col_ok, shape, device, cfg) -> dict:
+    """The masked 5x5 moment sums of the plane fit over a `shape` block:
+    `z_at(i, j)` is the elevation at offset (i, j) of every cell,
+    `row_ok(i)` (rows,) and `col_ok(j)` (cols,) say where that offset lies
+    inside the map; `cfg` is a MapConfig.  Shared by `compute_features`
+    and the row-sharded stencil (multirobot/spatial.py), which must agree
+    bitwise."""
     res = cfg.resolution
-    elev = state.elevation
-    rows = torch.arange(L, device=elev.device)
-    geo_r = torch.remainder(rows - state.start[0] + L, L)
-    geo_c = torch.remainder(rows - state.start[1] + L, L)
-
-    acc = {k: torch.zeros((L, L), dtype=torch.float32, device=elev.device)
+    acc = {k: torch.zeros(shape, dtype=torch.float32, device=device)
            for k in _MOMENTS}
     for i in range(-2, 3):
-        row_ok = (geo_r + i >= 0) & (geo_r + i < L)
+        rows_in = row_ok(i)
         for j in range(-2, 3):
-            col_ok = (geo_c + j >= 0) & (geo_c + j < L)
-            z = torch.roll(elev, shifts=(-i, -j), dims=(0, 1))
-            m = (row_ok[:, None] & col_ok[None, :]
+            z = z_at(i, j)
+            m = (rows_in[:, None] & col_ok(j)[None, :]
                  & (z != cfg.invalid_elevation)).to(torch.float32)
             cx = i * res
             cy = j * res
@@ -127,7 +125,21 @@ def compute_features(state: MapState, cfg) -> FeatureMaps:
             acc["Sxz"] += mz * cx
             acc["Syz"] += mz * cy
             acc["Szz"] += mz * z
+    return acc
 
+
+def compute_features(state: MapState, cfg) -> FeatureMaps:
+    """Plain PyTorch version of K2 (`cfg` is a MapConfig)."""
+    L = cfg.length
+    elev = state.elevation
+    rows = torch.arange(L, device=elev.device)
+    geo_r = torch.remainder(rows - state.start[0] + L, L)
+    geo_c = torch.remainder(rows - state.start[1] + L, L)
+    acc = accumulate_moments(
+        lambda i, j: torch.roll(elev, shifts=(-i, -j), dims=(0, 1)),
+        lambda i: (geo_r + i >= 0) & (geo_r + i < L),
+        lambda j: (geo_c + j >= 0) & (geo_c + j < L), (L, L),
+        elev.device, cfg)
     slope, rough, traver, nz, _ = features_from_moments(acc, elev, cfg)
     return FeatureMaps(slope=slope, rough=rough, traver=traver, normal_z=nz,
                        neighbor_count=acc["n"].to(torch.int32))

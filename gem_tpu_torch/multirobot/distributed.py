@@ -24,7 +24,7 @@ Constraints of the backends, handled here:
 from __future__ import annotations
 
 import datetime
-import os
+import re
 
 import torch
 import torch.distributed as dist
@@ -34,25 +34,31 @@ from gem_tpu_torch.utils.tree import tree_map
 DEFAULT_TIMEOUT_S = 600
 
 
+def tcp_address(coordinator: str) -> tuple[str, int] | None:
+    """(host, port) when `coordinator` is `host:port` with an integer port;
+    None for anything else, which `initialize` takes as a file path."""
+    m = re.fullmatch(r"([^/\\]+):(\d+)", coordinator)
+    return (m.group(1), int(m.group(2))) if m else None
+
+
 def initialize(coordinator: str, num_processes: int, process_id: int,
                backend: str | None = None,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the process group.  `coordinator` is `host:port` of process 0
-    (a TCPStore there), or a file path (a FileStore: processes of one host,
-    no port to pick).  `backend` defaults to NCCL when CUDA is available,
-    else gloo; with NCCL the process binds `cuda:{process_id mod cards}`."""
+    (a TCPStore there), or else a file path (a FileStore: processes of one
+    host, no port to pick).  `backend` defaults to NCCL when CUDA is
+    available, else gloo; with NCCL the process binds
+    `cuda:{process_id mod cards}`."""
     timeout = datetime.timedelta(seconds=timeout_s)
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
-    if os.sep in coordinator or coordinator.startswith("file:"):
-        path = coordinator[len("file:"):] if coordinator.startswith(
-            "file:") else coordinator
-        store = dist.FileStore(path, num_processes)
+    addr = tcp_address(coordinator)
+    if addr is None:
+        store = dist.FileStore(coordinator, num_processes)
     else:
-        host, port = coordinator.rsplit(":", 1)
-        store = dist.TCPStore(host, int(port), num_processes,
+        store = dist.TCPStore(*addr, num_processes,
                               is_master=process_id == 0, timeout=timeout)
     dist.init_process_group(backend, store=store, rank=process_id,
                             world_size=num_processes, timeout=timeout)
@@ -76,12 +82,21 @@ def rank_and_size(group=None) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
-def device(group=None) -> torch.device:
+def device(group=None) -> torch.device | None:
     """The device of this rank's tensors: `cuda:{current}` under NCCL, the
-    CPU under gloo (and without a process group, the CPU)."""
-    if dist.is_initialized() and dist.get_backend(group) == "nccl":
+    CPU under gloo; None without a process group (tensors stay where the
+    caller put them)."""
+    if not dist.is_initialized():
+        return None
+    if dist.get_backend(group) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def to_rank_device(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x` on this rank's device; `x` itself without a process group."""
+    dev = device(group)
+    return x if dev is None else x.to(dev)
 
 
 def barrier(name: str, timeout_ms: int = 600_000) -> None:
@@ -110,8 +125,9 @@ def local_robots(n_robots: int, group=None) -> range:
 
 def distribute_fleet(tree, group=None):
     """This process's robots of a fleet tree (leading robot axis = robots
-    it owns) on the rank's device.  Every rank must own as many robots: the
-    robot axis splits evenly, as on a mesh."""
+    it owns) on the rank's device (without a process group, where they
+    are).  Every rank must own as many robots: the robot axis splits
+    evenly, as on a mesh."""
     leaves = []
     tree_map(leaves.append, tree)
     n = leaves[0].shape[0]
@@ -123,8 +139,7 @@ def distribute_fleet(tree, group=None):
         if int(counts[0]) != n or -int(counts[1]) != n:
             raise ValueError("distribute_fleet: ranks own different robot "
                              "counts")
-    dev = device(group)
-    return tree_map(lambda x: x.to(dev), tree)
+    return tree_map(lambda x: to_rank_device(x, group), tree)
 
 
 def local_values(tree):

@@ -9,7 +9,7 @@ last rank get invalid-filled halos: the map has no rows beyond them.
 The planes are geographic (storage start 0), as in the JAX package: the
 rolling window's storage rotation would split geographic neighbours across
 ranks.  The moments are the plain version's (`kernels/features.py`
-`compute_features`) on the halo-extended block, the rows masked by their
+`accumulate_moments`) on the halo-extended block, the rows masked by their
 geographic index and the columns shifted by a roll plus a bounds mask
 (no wrap-around), and `features_from_moments` turns them into features;
 so a sharded plane equals the unsharded one.
@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from gem_tpu_torch.kernels.features import _MOMENTS, features_from_moments
+from gem_tpu_torch.kernels.features import (accumulate_moments,
+                                            features_from_moments)
 from gem_tpu_torch.multirobot import distributed as mdist
 
 _HALO = 2   # 5x5 stencil
@@ -28,35 +29,17 @@ _HALO = 2   # 5x5 stencil
 def _features_block(elev_block, row_offset: int, cfg, total_rows: int):
     """(slope, rough, traver) of the (rows, L) interior of a (2 + rows + 2,
     L) block whose first interior row is geographic row `row_offset`."""
-    res = cfg.resolution
     L = elev_block.shape[1]
     rows = elev_block.shape[0] - 2 * _HALO
     dev = elev_block.device
-    acc = {k: torch.zeros((rows, L), dtype=torch.float32, device=dev)
-           for k in _MOMENTS}
     g_rows = row_offset + torch.arange(rows, device=dev)
     g_cols = torch.arange(L, device=dev)
-    for i in range(-2, 3):
-        row_ok = (g_rows + i >= 0) & (g_rows + i < total_rows)
-        for j in range(-2, 3):
-            col_ok = (g_cols + j >= 0) & (g_cols + j < L)
-            z = torch.roll(elev_block[_HALO + i:_HALO + i + rows],
-                           shifts=-j, dims=1)
-            m = (row_ok[:, None] & col_ok[None, :]
-                 & (z != cfg.invalid_elevation)).to(torch.float32)
-            cx = i * res
-            cy = j * res
-            mz = m * z
-            acc["n"] += m
-            acc["Sx"] += m * cx
-            acc["Sy"] += m * cy
-            acc["Sz"] += mz
-            acc["Sxx"] += m * (cx * cx)
-            acc["Syy"] += m * (cy * cy)
-            acc["Sxy"] += m * (cx * cy)
-            acc["Sxz"] += mz * cx
-            acc["Syz"] += mz * cy
-            acc["Szz"] += mz * z
+    acc = accumulate_moments(
+        lambda i, j: torch.roll(elev_block[_HALO + i:_HALO + i + rows],
+                                shifts=-j, dims=1),
+        lambda i: (g_rows + i >= 0) & (g_rows + i < total_rows),
+        lambda j: (g_cols + j >= 0) & (g_cols + j < L), (rows, L), dev,
+        cfg)
     interior = elev_block[_HALO:_HALO + rows]
     slope, rough, traver, _, _ = features_from_moments(acc, interior, cfg)
     return slope, rough, traver
@@ -86,7 +69,8 @@ def sharded_features(cfg, group=None):
 
 
 def place_row_sharded(plane, group=None):
-    """This rank's rows of a full (L, L) plane, on the rank's device."""
+    """This rank's rows of a full (L, L) plane, on the rank's device
+    (without a process group, the whole plane where it is)."""
     rank, n = mdist.rank_and_size(group)
     rows = plane.shape[0] // n
-    return plane[rank * rows:(rank + 1) * rows].to(mdist.device(group))
+    return mdist.to_rank_device(plane[rank * rows:(rank + 1) * rows], group)

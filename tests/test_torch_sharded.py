@@ -193,3 +193,56 @@ def test_sharded_checkpoint_restores_each_ranks_robots(ranks):
                               ranks[1]["ck/elevation"])
     assert not np.array_equal(ranks[0]["ck/kf_ids"], ranks[1]["ck/kf_ids"])
     assert "ck/robots" not in ranks[2]
+
+
+@pytest.mark.parametrize("place", ["place_row_sharded", "distribute_fleet"])
+def test_no_group_keeps_the_callers_device(place):
+    """Without a process group a tensor stays on the device it was given
+    (a meta tensor stands in for one on a card): nothing moves it to the
+    CPU behind the caller's back."""
+    import torch.distributed as dist
+
+    from gem_tpu_torch.multirobot import distributed as mdist
+    from gem_tpu_torch.multirobot import spatial
+
+    assert not dist.is_initialized()
+    assert mdist.device() is None
+    x = torch.empty((8, 8), device="meta")
+    if place == "place_row_sharded":
+        got = spatial.place_row_sharded(x)
+    else:
+        got = mdist.distribute_fleet({"a": x})["a"]
+    assert got.device.type == "meta" and got.shape == (8, 8)
+
+
+@pytest.mark.parametrize("coordinator,want", [
+    ("localhost:29500", ("localhost", 29500)),
+    ("10.0.0.2:1234", ("10.0.0.2", 1234)),
+    ("[::1]:8000", ("[::1]", 8000)),
+    ("store", None),
+    ("/tmp/run/store", None),
+    ("runs/host:12", None),
+    ("host:port", None),
+])
+def test_coordinator_is_tcp_only_as_host_port(coordinator, want):
+    from gem_tpu_torch.multirobot.distributed import tcp_address
+
+    assert tcp_address(coordinator) == want
+
+
+def test_initialize_takes_a_bare_filename_as_a_file_store(tmp_path,
+                                                         monkeypatch):
+    """`--coordinator store` (a relative path with no separator) joins a
+    group over a FileStore."""
+    import torch.distributed as dist
+
+    from gem_tpu_torch.multirobot import distributed as mdist
+
+    monkeypatch.chdir(tmp_path)
+    mdist.initialize("store", 1, 0, backend="gloo", timeout_s=30)
+    try:
+        assert dist.get_world_size() == 1
+        assert mdist.device() == torch.device("cpu")
+        assert mdist.all_reduce_sum(3) == 3
+    finally:
+        mdist.shutdown()
