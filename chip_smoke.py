@@ -9,8 +9,12 @@ host's launch overhead is left out):
   2. build the CUDA kernels from gem_tpu_torch/csrc (one nvcc per source,
      in parallel);
   3. K1 (fuse_stream_aggregate) vs its plain PyTorch version on the card,
-     at the L=1000 flagship: a 131072-point frame, a 1,048,576-point frame
-     and a 131072-point frame with half its lanes colored;
+     at the L=1000 flagship: a 131072-point, a 1,048,576-point and a
+     4,194,304-point frame and a 131072-point frame with half its lanes
+     colored, each launched twice (bitwise equal); then on adversarial
+     layouts (one cell holding every point, runs straddling the 256-cell
+     tile edges, runs of 1 to 7 points, empty head and tail tiles, all
+     padding, no point), with and without color;
   4. K2 (plane_fit_features) vs its plain version at L=1000, bitwise on
      all five planes, on three maps: phase 3's prior, phase 8's 30-frame
      stream map (so this phase runs after phase 8) and a fully valid
@@ -18,7 +22,8 @@ host's launch overhead is left out):
   5. K3 (segment_stats_sorted) vs its plain version on the five column
      sets `fuse_pallas` reduces, on a 131072-point and a 1,048,576-point
      frame at L=1000, timed as the kernel alone, through the wrapper, as
-     the plain version and as the `torch.segment_reduce` yardstick; then
+     the plain version and as the `torch.segment_reduce` yardstick (in a
+     CUDA graph, as the kernel, and launched one by one); then
      on adversarial layouts (one segment, long runs across the blocks'
      edges, empty head and tail gaps, all padding, no point, blocks of 1
      to 7 points with repeated ids, 1,048,576 points, int32 and int64
@@ -61,16 +66,18 @@ flagship step and fleet-frame medians, one JSON line of per-kernel results,
 the nvidia-smi line again, and the last line {"ok": true, "device": {...}}.  Any failure
 raises: the script exits non-zero and prints no result.  It imports no jax.
 
-With `--old DIR`, phases 4 and 5 also time an earlier version of K2 and K3:
-DIR holds their `features.cu` and `segment_stats.cu` with the C entry
-points they had before the Hopper redesign (K2 took the resolution as a
-double; K3 took per-segment run offsets, found by `torch.searchsorted`,
-and `fuse_pallas` passed it a (1, N) zero stack for each unused role).
-They are built beside the current sources with the same nvcc flags, held
-to the plain versions, and timed in turns with the current ones on the
-same inputs (earlier, current, current, earlier); `nvcc -Xptxas -v` and a
-count of fp64, conversion and call instructions in the SASS of each
-version are printed.
+With `--old DIR`, phases 3, 4 and 5 also time an earlier version of K1,
+K2 and K3, those of whose sources DIR holds: `fuse_stream.cu` with the
+current C entry point (K1 before its Hopper redesign, one thread per
+cell), and `features.cu` and `segment_stats.cu` with the C entry points
+they had before theirs (K2 took the resolution as a double; K3 took
+per-segment run offsets, found by `torch.searchsorted`, and `fuse_pallas`
+passed it a (1, N) zero stack for each unused role).  They are built
+beside the current sources with the same nvcc flags, held to the plain
+versions, and timed in turns with the current ones on the same inputs
+(earlier, current, current, earlier); `nvcc -Xptxas -v` and a count of
+fp64, conversion and call instructions in the SASS of each version are
+printed.
 """
 
 from __future__ import annotations
@@ -179,47 +186,92 @@ def frame_batch(state, frame, cfg):
     return ms, batch, lowest
 
 
-def phase_k1(cfg_fn, dev):
-    """K1 vs plain on three flagship frames; returns (kernel line, map)."""
+def bitwise_equal(a, b):
+    """Equal to the bit (inf and -0.0 included)."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def k1_shape(args):
+    """(longest run, most points in one 256-cell tile of K1): the skew a
+    frame puts on K1's blocks."""
+    offsets = args[0]
+    runs = offsets[1:] - offsets[:-1]
+    ends = offsets[torch.clamp(torch.arange(
+        0, offsets.numel() + 255, 256, device=offsets.device),
+        max=offsets.numel() - 1)]
+    return int(runs.max()), int((ends[1:] - ends[:-1]).max())
+
+
+def k1_check(args, what, old=None):
+    """K1 on `args` against its plain version (`rows_compare`), a second
+    launch bitwise equal to the first, and with `old` (an `Earlier`) the
+    earlier K1 against the plain version too.  Returns (W's relative error,
+    WH/W's error, the kernel's rows, the plain rows)."""
+    from gem_tpu_torch.kernels import fuse_stream as fs
+
+    k = fs.fuse_stream_aggregate(*args)
+    again = fs.fuse_stream_aggregate(*args)
+    p = fs.fuse_stream_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    fail_unless(bitwise_equal(k, again), f"K1 {what}: two launches differ")
+    rel_w, h_err = rows_compare(k, p)
+    if old is not None and old.has("fuse_stream.cu"):
+        rows_compare(old.k1(args), p)
+    return rel_w, h_err, k, p
+
+
+def k1_frame(cfg_fn, dev, n, colored):
+    """The third frame of phase 3's drive (seed 1, 0.5 m per frame, two
+    frames stepped into the map first) at `n` points, through the step's
+    stages up to the fuse.  `colored`: half the lanes colored (rows 12-14)
+    and 2% lifted by 1 m, so colored start rows are outliers of the prior
+    (rows 7-10).  Returns (K1's arguments, moved map, point batch, cfg)."""
     import dataclasses
 
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.kernels import fuse_stream as fs
     from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
 
+    cfg = cfg_fn(max_points=n)
+    frames = [f for f, _, _ in synthetic_frames(
+        cfg, 3, n_points=n, speed=0.5, seed=1, device=dev)]
+    state = init_pipeline_state(cfg, dev)
+    for f in frames[:2]:                 # a populated prior to fuse into
+        state, _ = step(state, f, cfg)
+    frame = frames[2]
+    if colored:
+        rng = np.random.default_rng(5)
+        P = frame.points.shape[0]
+        col = np.where(rng.random(P) < 0.5,
+                       rng.integers(1, 1 << 24, P), 0).astype(np.int32)
+        lift = torch.from_numpy(
+            (rng.random(P) < 0.02).astype(np.float32)).to(dev)
+        pts = frame.points.clone()
+        pts[:, 2] += lift
+        frame = dataclasses.replace(
+            frame, points=pts, colors=torch.from_numpy(col).to(dev))
+    ms, batch, _ = frame_batch(state, frame, cfg)
+    L = cfg.map.length
+    args = (*fs.sort_points(batch, L * L), ms.elevation.reshape(-1),
+            ms.variance.reshape(-1), cfg.map)
+    return args, ms, batch, cfg
+
+
+def phase_k1(cfg_fn, dev, old=None):
+    """K1 vs plain on four flagship frames (`k1_frame`), then on
+    adversarial layouts; returns (kernel line, map).  With `old` (an
+    `Earlier` holding fuse_stream.cu), the earlier K1 is held to the plain
+    version too and timed in turns with the current one."""
+    from gem_tpu_torch.kernels import fuse_stream as fs
+
     results = []
     prior = None
     cases = [("131k", 1 << 17, False), ("1M", 1 << 20, False),
-             ("131k_colored", 1 << 17, True)]
+             ("4M", 1 << 22, False), ("131k_colored", 1 << 17, True)]
     for name, n, colored in cases:
-        cfg = cfg_fn(max_points=n)
-        frames = [f for f, _, _ in synthetic_frames(
-            cfg, 3, n_points=n, speed=0.5, seed=1, device=dev)]
-        state = init_pipeline_state(cfg, dev)
-        for f in frames[:2]:                 # a populated prior to fuse into
-            state, _ = step(state, f, cfg)
-        frame = frames[2]
-        if colored:
-            # half the lanes colored (rows 12-14), and 2% lifted by 1 m so
-            # colored start rows are outliers of the prior (rows 7-10)
-            rng = np.random.default_rng(5)
-            P = frame.points.shape[0]
-            col = np.where(rng.random(P) < 0.5,
-                           rng.integers(1, 1 << 24, P), 0).astype(np.int32)
-            lift = torch.from_numpy(
-                (rng.random(P) < 0.02).astype(np.float32)).to(dev)
-            pts = frame.points.clone()
-            pts[:, 2] += lift
-            frame = dataclasses.replace(
-                frame, points=pts, colors=torch.from_numpy(col).to(dev))
-        ms, batch, _ = frame_batch(state, frame, cfg)
-        L = cfg.map.length
-        args = (*fs.sort_points(batch, L * L), ms.elevation.reshape(-1),
-                ms.variance.reshape(-1), cfg.map)
-        k = fs.fuse_stream_aggregate(*args)
-        p = fs.fuse_stream_aggregate_plain(*args)
-        torch.cuda.synchronize()
-        rel_w, h_err = rows_compare(k, p)
+        args, ms, batch, cfg = k1_frame(cfg_fn, dev, n, colored)
+        rel_w, h_err, k, p = k1_check(args, name, old)
         if colored:
             fail_unless(int((k[12] < float("inf")).sum())
                         > 0.25 * int((k[2] > 0).sum()),
@@ -239,20 +291,122 @@ def phase_k1(cfg_fn, dev):
                     f"by {plane_err}")
         fail_unless(bool(torch.equal(fused_k.color, fused_p.color)),
                     f"K1 {name}: color planes differ")
-        t_k = graph_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
+        fns = {"current": lambda: fs.fuse_stream_aggregate(*args)}
+        if old is not None and old.has("fuse_stream.cu"):
+            fns = {"earlier": lambda: old.k1(args), **fns}
+        t_g = in_turns(fns, graph_ms, 20)
+        t_k = t_g["current"]
         t_e = cuda_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
         t_p = cuda_ms(lambda: fs.fuse_stream_aggregate_plain(*args), 20)
         b_ms = k1_bound(args)[0]
+        longest, tile_max = k1_shape(args)
+        earlier = (f" earlier=ok earlier_kernel_ms={t_g['earlier']:.4f} "
+                   f"earlier_share_of_bound={b_ms / t_g['earlier']:.3f}"
+                   if "earlier" in t_g else "")
         print(f"phase 3 K1 {name}: ok points={int(batch.valid.sum())} "
-              f"cells={int((k[2] > 0).sum())} selection_rows=bitwise "
-              f"W_max_rel_err={rel_w:.3g} H_max_abs_err={h_err:.3g} "
-              f"planes_max_abs_err={plane_err:.3g} kernel_ms={t_k:.4f} "
-              f"eager_ms={t_e:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
-              f"share_of_bound={b_ms / t_k:.3f}", flush=True)
+              f"cells={int((k[2] > 0).sum())} longest_run={longest} "
+              f"max_tile_points={tile_max} selection_rows=bitwise "
+              f"run_to_run=bitwise W_max_rel_err={rel_w:.3g} "
+              f"H_max_abs_err={h_err:.3g} planes_max_abs_err={plane_err:.3g}"
+              f" kernel_ms={t_k:.4f} eager_ms={t_e:.4f} plain_ms={t_p:.4f} "
+              f"bound_ms={b_ms:.4f} share_of_bound={b_ms / t_k:.3f}"
+              f"{earlier}", flush=True)
         results.append((name, plane_err, t_k, t_p, k1_bound(args), t_e))
         if name == "131k":
             prior = fused_k
+        del args, k, p, batch, ms, fused_k, fused_p
+    k1_adversarial(cfg_fn, dev, old)
     return results, prior
+
+
+def k1_layouts(rng, L, P=1 << 16):
+    """Sorted-point layouts that stress K1's owners (a block owns 256
+    consecutive cells and cuts their points into 8 warp parts by
+    position), as {name: (cell ids, valid mask)} over up to P lanes at L x L
+    cells: every point in one cell; runs of 1-3000 points whose cells
+    straddle 256-cell tile edges; runs of 1-7 points; points only in the
+    middle third (empty head and tail tiles); every lane padding; no
+    point at all."""
+    S = L * L
+    every = np.ones(P, bool)
+    edges = sorted({k * 256 + d for k in (1, 2, 3, 9, S // 512, S // 256 - 1)
+                    for d in (-1, 0)})
+    lengths = rng.integers(1, 3000, len(edges))
+    edge_ids = np.repeat(np.asarray(edges), lengths)
+    short_cells = np.sort(rng.choice(S, 20000, replace=False))
+    short_ids = np.repeat(short_cells, rng.integers(1, 8, len(short_cells)))
+    mid = rng.integers(S // 3, 2 * S // 3, P)
+    return {
+        "one_cell": (np.full(P, S // 2 + 77), every),
+        "tile_edge_runs": (edge_ids, np.ones(len(edge_ids), bool)),
+        "runs_of_1_to_7": (short_ids, np.ones(len(short_ids), bool)),
+        "empty_head_and_tail_tiles": (mid, every),
+        "all_padding": (rng.integers(0, S, 4096), np.zeros(4096, bool)),
+        "no_points": (np.zeros(0, np.int64), np.zeros(0, bool)),
+    }
+
+
+def layout_batch(rng, cells, valid, dev):
+    """A PointBatch on `cells` whose gated sums are exact in f32 in any
+    order, so K1 must equal the plain version in every row: heights on a
+    1/16 m grid in [-1, 1] m, 10% lifted 2.5 m (outlier start rows), and
+    variances of 1/16, 1/32 or 1/64 (weights 16-64, exact v ties), so each
+    w and w*h is an integer and a cell's sums stay below 2^24 for up to
+    65536 points; half the lanes colored."""
+    from gem_tpu_torch.kernels.pointproc import PointBatch
+
+    P = len(cells)
+    col = np.where(rng.random(P) < 0.5, rng.integers(1, 1 << 24, P), 0)
+    h = (np.clip(np.round(rng.normal(size=P) * 0.3 * 16) / 16, -1, 1)
+         + (rng.random(P) < 0.1) * 2.5)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(dev)
+    return PointBatch(
+        xy=torch.zeros((P, 2), device=dev), height=t(h, np.float32),
+        variance=t(2.0 ** -rng.integers(4, 7, P), np.float32),
+        cell=t(cells, np.int32), color=t(col, np.int32),
+        intensity=t(np.where(col != 0, rng.integers(1, 4, P), 0),
+                    np.float32),
+        valid=t(valid, bool))
+
+
+def k1_adversarial(cfg_fn, dev, old=None):
+    """K1 vs plain, every row equal (`layout_batch` makes the sums exact),
+    and a second launch bitwise, on `k1_layouts` at the flagship's L=1000,
+    with and without color, over a prior with half its cells fused."""
+    from gem_tpu_torch.kernels import fuse_stream as fs
+
+    cfg = cfg_fn()
+    L = cfg.map.length
+    rng = np.random.default_rng(31)
+    occ = rng.random(L * L) < 0.5
+    elev0 = torch.from_numpy(np.where(occ, rng.normal(size=L * L) * 0.3,
+                                      cfg.map.invalid_elevation)
+                             .astype(np.float32)).to(dev)
+    var0 = torch.from_numpy(np.where(occ, rng.uniform(1e-4, 0.05, L * L),
+                                     cfg.map.invalid_variance)
+                            .astype(np.float32)).to(dev)
+    names = []
+    for name, (cells, valid) in k1_layouts(rng, L).items():
+        batch = layout_batch(rng, cells, valid, dev)
+        for with_color in (True, False):
+            args = (*fs.sort_points(batch, L * L, with_color), elev0, var0,
+                    cfg.map)
+            what = f"{name}/{'color' if with_color else 'no_color'}"
+            kw = {"with_color": with_color}
+            k = fs.fuse_stream_aggregate(*args, **kw)
+            again = fs.fuse_stream_aggregate(*args, **kw)
+            p = fs.fuse_stream_aggregate_plain(*args, **kw)
+            torch.cuda.synchronize()
+            fail_unless(bitwise_equal(k, again),
+                        f"K1 {what}: two launches differ")
+            fail_unless(bool(torch.equal(k, p)),
+                        f"K1 {what}: rows differ from the plain version")
+            if old is not None and old.has("fuse_stream.cu"):
+                fail_unless(bool(torch.equal(old.k1(args, **kw), p)),
+                            f"earlier K1 {what}: rows differ from plain")
+            names.append(f"{what}:{int(batch.valid.sum())}")
+    print(f"phase 3 K1 adversarial L={L}: ok rows=equal run_to_run=bitwise "
+          f"layouts/points={names}", flush=True)
 
 
 def bound(nbytes, ops=0.0):
@@ -266,13 +420,14 @@ def bound(nbytes, ops=0.0):
 
 
 def k1_bound(args):
-    """K1's least bytes: its 16 output rows, the run offsets, the sorted
-    points' four columns, and the priors (elevation, variance) of the cells
-    that hold points."""
+    """K1's least bytes: its 16 output rows, the run offsets, the four
+    columns of the sorted points that lie in a cell (the pad lanes after
+    them are never read), and the priors (elevation, variance) of the
+    cells that hold points."""
     offsets, h, v, inten, colf, elev0, _, _ = args
     occupied = int((offsets[1:] > offsets[:-1]).sum())
     nbytes = (16 * elev0.numel() * 4 + offsets.numel() * 8
-              + 4 * h.numel() * 4 + 2 * occupied * 4)
+              + 4 * int(offsets[-1]) * 4 + 2 * occupied * 4)
     return bound(nbytes)
 
 
@@ -292,28 +447,38 @@ def terrain_map(cfg, dev):
 
 
 class Earlier:
-    """K2 and K3 built from the earlier sources in `src_dir` (`--old`),
-    bound with their earlier C entry points, and called as their earlier
-    wrappers called them."""
+    """K1, K2 and K3 built from the earlier sources in `src_dir` (`--old`),
+    those of them that it holds, bound with their earlier C entry points,
+    and called as their earlier wrappers called them."""
 
-    SOURCES = ("features.cu", "segment_stats.cu")
     _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     SIGNATURES = {
-        # K2: ..., L, resolution (double), ...
-        "gem_plane_fit_features": (_P,) * 7 + (_I, ctypes.c_double)
-                                  + (_F,) * 5 + (_P,),
-        # K3: offsets (S + 1), columns, results, n, S, F per role, stream
-        "gem_segment_stats_sorted": (_P,) * 7 + (ctypes.c_int64,)
-                                    + (_I,) * 4 + (_P,)}
+        # K1 before its redesign (one thread per cell): the current
+        # entry point
+        "fuse_stream.cu": ("gem_fuse_stream_aggregate",
+                           (_P,) * 8 + (_I, _F, _F, _F, _I, _I, _P)),
+        # K2 before its redesign: ..., L, resolution (double), ...
+        "features.cu": ("gem_plane_fit_features",
+                        (_P,) * 7 + (_I, ctypes.c_double) + (_F,) * 5
+                        + (_P,)),
+        # K3 before its redesign: offsets (S + 1), columns, results, n,
+        # S, F per role, stream
+        "segment_stats.cu": ("gem_segment_stats_sorted",
+                             (_P,) * 7 + (ctypes.c_int64,) + (_I,) * 4
+                             + (_P,))}
 
     def __init__(self, src_dir):
         from gem_tpu_torch.kernels import _build
 
+        self.sources = [s for s in self.SIGNATURES
+                        if os.path.exists(os.path.join(src_dir, s))]
+        fail_unless(self.sources, f"--old {src_dir}: none of "
+                    f"{list(self.SIGNATURES)} there")
         out = os.path.join(os.path.dirname(_build.BUILD_DIR), "earlier")
         os.makedirs(out, exist_ok=True)
         jobs = {}
         for who, d in (("earlier", src_dir), ("current", _build.CSRC)):
-            for src in self.SOURCES:
+            for src in self.sources:
                 obj = os.path.join(out, f"{who}_{src[:-3]}.o")
                 jobs[who, src, obj] = subprocess.Popen(
                     [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -338,9 +503,30 @@ class Earlier:
                         *(obj for (who, _, obj) in jobs if who == "earlier")],
                        check=True)
         self.lib = ctypes.CDLL(so)
-        for name, argtypes in self.SIGNATURES.items():
+        for src in self.sources:
+            name, argtypes = self.SIGNATURES[src]
             getattr(self.lib, name).argtypes = list(argtypes)
             getattr(self.lib, name).restype = ctypes.c_int
+
+    def has(self, src):
+        """Whether the earlier `src` (e.g. "features.cu") was built."""
+        return src in self.sources
+
+    def k1(self, args, with_lowest=True, with_color=True):
+        """The earlier K1 on the current wrapper's arguments: (16, ncell)."""
+        from gem_tpu_torch.kernels import _build
+
+        offsets, h, v, inten, colf, elev0, var0, mcfg = args
+        ncell = offsets.numel() - 1
+        out = torch.empty((16, ncell), dtype=torch.float32, device=h.device)
+        err = self.lib.gem_fuse_stream_aggregate(
+            offsets.data_ptr(), h.data_ptr(), v.data_ptr(), inten.data_ptr(),
+            colf.data_ptr(), elev0.data_ptr(), var0.data_ptr(),
+            out.data_ptr(), ncell, mcfg.invalid_elevation,
+            mcfg.min_variance, mcfg.mahalanobis_threshold, int(with_lowest),
+            int(with_color), _build.stream_of(h))
+        _build.check(err, "earlier K1")
+        return out
 
     def k2(self, m, mcfg):
         """The earlier K2 wrapper (the same checks as the current one):
@@ -438,7 +624,7 @@ def phase_k2(cfg, states, old=None):
                            + K2_OPS_COUNT * (cells - fitted))
         fns = {"current": lambda: ft.plane_fit_features(m, mcfg)}
         earlier = ""
-        if old is not None:
+        if old is not None and old.has("features.cu"):
             planes, count = old.k2(m, mcfg)
             fail_unless(torch.equal(count, p.neighbor_count) and all(
                 torch.equal(planes[i], getattr(p, key)) for i, key in
@@ -449,7 +635,7 @@ def phase_k2(cfg, states, old=None):
         t_eg = in_turns(fns, cuda_ms, 50)
         t_k, t_e = t_g["current"], t_eg["current"]
         t_p = cuda_ms(lambda: ft.compute_features(m, mcfg), 5)
-        if old is not None:
+        if "earlier" in t_g:
             earlier = (f" earlier=bitwise earlier_kernel_ms="
                        f"{t_g['earlier']:.4f} earlier_eager_ms="
                        f"{t_eg['earlier']:.4f}")
@@ -698,10 +884,11 @@ def phase_k3(cfg_fn, dev, old=None):
     through the pallas step first), then on the adversarial layouts.
     Times per call and per frame: the kernel alone (device time, from a
     CUDA graph), the wrapper as fuse_pallas calls it, the plain version and
-    the `torch.segment_reduce` yardstick (each launched one by one: the
-    yardstick cannot be captured in a graph).  With `old` (an `Earlier`),
-    the earlier K3 is held to the plain version on its own arguments and
-    its kernel and wrapper are timed in turns with the current ones.
+    the `torch.segment_reduce` yardstick, timed in a CUDA graph as the
+    kernel is (`library`) and launched one by one (`library_eager`).  With
+    `old` (an `Earlier` holding segment_stats.cu), the earlier K3 is held
+    to the plain version on its own arguments and its kernel and wrapper
+    are timed in turns with the current ones.
     Returns (results, adversarial max error, the 131k frame's (cfg, moved
     map, batch, lowest))."""
     from gem_tpu_torch.io.replay import synthetic_frames
@@ -720,8 +907,9 @@ def phase_k3(cfg_fn, dev, old=None):
         calls = fuse_pallas_calls(ms, cfg, batch)
         err = max(k3_compare(a) for a in calls)
         t = {"kernel": 0.0, "wrapper": 0.0, "plain": 0.0, "library": 0.0,
-             "bound": 0.0}
-        if old is not None:
+             "library_eager": 0.0, "bound": 0.0}
+        k3_old = old is not None and old.has("segment_stats.cu")
+        if k3_old:
             t.update(earlier_kernel=0.0, earlier_wrapper=0.0)
         for a in calls:
             lib_run, lib_results = k3_library(a)
@@ -729,7 +917,7 @@ def phase_k3(cfg_fn, dev, old=None):
             kernels = {"kernel": k3_kernel_only(a)}
             wrappers = {"wrapper": lambda: sst.segment_stats_sorted(
                 *a, with_spill=False)}
-            if old is not None:
+            if k3_old:
                 o = Earlier.k3_args(a)
                 got = old.k3(o)
                 k3_check(a, [x[:a[i + 1].shape[0]] for i, x in
@@ -745,7 +933,8 @@ def phase_k3(cfg_fn, dev, old=None):
                 t[k] += v
             t["plain"] += cuda_ms(lambda: sst.segment_stats_sorted_plain(*a),
                                   20)
-            t["library"] += cuda_ms(lib_run, 20)
+            t["library"] += graph_ms(lib_run, 50)
+            t["library_eager"] += cuda_ms(lib_run, 20)
             t["bound"] += k3_bound(a)[0]
         print(f"phase 5 K3 {name}: ok points={int(batch.valid.sum())} "
               f"calls=5 F={[tuple(x.shape[0] for x in a[1:4]) for a in calls]}"
@@ -1493,8 +1682,9 @@ def phase_flagship(dev, backend, frames, world):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", metavar="DIR",
-                    help="also time the earlier features.cu and "
-                         "segment_stats.cu in DIR (phases 4 and 5)")
+                    help="also time the earlier fuse_stream.cu, "
+                         "features.cu and segment_stats.cu in DIR, those "
+                         "it holds (phases 3, 4 and 5)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
@@ -1515,7 +1705,7 @@ def main():
     print(f"phase 2 build: ok nvcc_s={nvcc_s:.2f} total_s="
           f"{time.perf_counter() - t0:.2f} {path}", flush=True)
     old = Earlier(args.old) if args.old else None
-    k1, prior = phase_k1(benchmark_config, dev)
+    k1, prior = phase_k1(benchmark_config, dev, old)
     k3, k3_adv_err, flagship_frame = phase_k3(benchmark_config, dev, old)
     phase_backends(*flagship_frame)
     del flagship_frame
@@ -1579,10 +1769,11 @@ def main():
          "launches_per_frame":
              launches_pallas["segment_stats_sorted"] / n_frames,
          "fleet_launches": fleet_launches["segment_stats_sorted"],
-         "max_abs_err": max(max(e for e, _ in k3.values()), k3_adv_err),
+         "max_abs_err": max(max(r[0] for r in k3.values()), k3_adv_err),
          "ms": k3_main["kernel"], "plain_ms": k3_main["plain"],
          "bound_ms": k3_main["bound"], "bound_by": "bytes",
          "library_ms": k3_main["library"],
+         "library_eager_ms": k3_main["library_eager"],
          "wrapper_ms": k3_main["wrapper"]},
     ]
     print(f"flagship step_ms_median stream={step_stream:.3f} "

@@ -5,8 +5,12 @@ leaf, keyed by the dataclass field path ("map/elevation",
 "submaps/slots/x", "frame_idx", ...), extras under "__extra__/<name>".  The
 field names of the two packages are the same, so a checkpoint written by
 either loads in the other: this is the state hand-over beside
-`state_from_numpy`.  Orbax checkpoints (sharded fleet states) wait for the
-port of multirobot/.
+`state_from_numpy`.
+
+Sharded fleet states, which the JAX package writes with orbax, are saved
+and restored here by `save_checkpoint_sharded` / `load_checkpoint_sharded`
+over `torch.distributed.checkpoint`: each rank writes and reads its own
+robots, keyed by their robot range.
 """
 
 from __future__ import annotations

@@ -444,10 +444,12 @@ def _fleet(args, dev, mode, group_world=1, group_rank=0):
     for frames in zip(*gens):
         frame_list = [f for f, _, _ in frames]
         if drift:
-            # as in the JAX CLI: every process's first robot keeps its pose
-            frame_list = [f if k == 0 else _drift_frame(
+            # as in the JAX CLI: robot 0 of the fleet keeps its pose, and in
+            # the distributed mode every process's first robot
+            first = robots[0] if mode == "distributed" else 0
+            frame_list = [f if r == first else _drift_frame(
                 f, math.radians(args.drift_yaw), (args.drift_x, args.drift_y))
-                for k, f in enumerate(frame_list)]
+                for r, f in zip(robots, frame_list)]
         stacked = tree_map(lambda x: x.to(dev), stack_frames(frame_list))
         state, outs = fleet_step(state, stacked, cfg, backend)
         n += 1
@@ -457,26 +459,34 @@ def _fleet(args, dev, mode, group_world=1, group_rank=0):
     pv = _numpy(outs.metrics["points_valid"]).tolist() if outs else []
     fused = _numpy((state.map.elevation != cfg.map.invalid_elevation)
                    .sum(dim=(-2, -1))).tolist()
+    submaps = state.submaps
     if mode == "mesh" and group_world > 1:
-        gathered = [None] * group_world
-        torch.distributed.all_gather_object(gathered, (fused, pv))
-        fused = [v for g in gathered for v in g[0]]
-        pv = [v for g in gathered for v in g[1]]
+        # rank 0 prints for the whole fleet, as JAX's one mesh process does:
+        # every rank's counts, and its submap store for the loop detection
+        store = (tree_map(lambda x: x.cpu(), submaps) if args.loop_detect
+                 else None)
+        gathered = [None] * group_world if group_rank == 0 else None
+        torch.distributed.gather_object((fused, pv, store), gathered, dst=0)
         if group_rank:
             return 0
+        fused = [v for g in gathered for v in g[0]]
+        pv = [v for g in gathered for v in g[1]]
+        if args.loop_detect:
+            submaps = tree_map(lambda *xs: torch.cat(xs).to(dev),
+                               *(g[2] for g in gathered))
     print(f"fleet of {R} robots: {n} frames in {dt:.2f}s "
           f"({n / max(dt, 1e-9):.1f} fleet-Hz, {mode})")
     print(f"per-robot fused cells: {fused}")
     print(f"per-robot last-frame valid points: {pv}")
 
-    if args.loop_detect and group_world == 1 and mode != "distributed":
+    if args.loop_detect and mode != "distributed":
         # inter-robot loops from DiSCO signatures alone, the joint pose
         # graph and the re-stitch (the reference ships InterPR.msg to an
         # external MR_SLAM backend)
         from gem_tpu_torch.multirobot.loop_detect import fleet_loop_closure
 
         _, lstats, records = fleet_loop_closure(
-            state.submaps, cfg, sim_threshold=args.loop_sim_threshold,
+            submaps, cfg, sim_threshold=args.loop_sim_threshold,
             center_gate=args.loop_center_gate)
         print("loop-detect:", json.dumps(lstats))
         if args.publish_interpr:
@@ -514,8 +524,10 @@ def cmd_fleet(args):
     here over a FileStore; one card: this process) and `--coordinator`
     (this process is rank --process-id of --num-processes, on any host).
     The mesh and distributed modes run the same code, each rank stepping
-    its own robots with no collective; loop detection runs only when one
-    process holds every robot."""
+    its own robots with no collective.  A mesh prints from rank 0 for the
+    whole fleet and detects loops there over every rank's submaps, as JAX's
+    one mesh process does; the distributed mode prints each process's
+    robots and detects no loops."""
     dev = _device(args)
     if args.coordinator:
         return _fleet_rank(args.process_id, args, args.coordinator,
@@ -629,7 +641,8 @@ def cmd_info(args):
     return 0
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
+    """The CLI's parser: every subcommand sets `fn`, its command."""
     ap = argparse.ArgumentParser(prog="gem_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -761,8 +774,11 @@ def main(argv=None):
     ip = sub.add_parser("info", help="environment + config dump")
     common(ip)
     ip.set_defaults(fn=cmd_info)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -13,6 +13,7 @@ import re
 import struct
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -325,6 +326,78 @@ def test_fleet_mesh_on_the_cpu_is_one_process(capsys):
     import torch.distributed as dist
 
     assert not dist.is_initialized()        # the group was left
+
+
+MESH_JOIN_TIMEOUT_S = 300
+
+
+def _mesh_ranks(tmp_path, capfd, argv, world=2):
+    """`fleet --mesh` as it runs on a host with `world` cards: `world`
+    spawned ranks of `_fleet_rank(..., "mesh")` joined over a FileStore,
+    here gloo on the CPU.  Returns what they printed."""
+    import torch.multiprocessing as mp
+
+    args = tcli._parser().parse_args(["fleet", "--device", "cpu", "--mesh",
+                                      *argv])
+    capfd.readouterr()
+    ctx = mp.start_processes(tcli._fleet_rank,
+                             args=(args, str(tmp_path / "store"), world,
+                                   "mesh"),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"mesh ranks still running after "
+                                     f"{MESH_JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return capfd.readouterr().out
+
+
+def test_fleet_mesh_two_ranks_drift_only_robot_zero(tmp_path, capfd):
+    """Two mesh ranks of two robots each: only robot 0 of the whole fleet
+    keeps its pose under --drift-yaw (not each rank's first robot), so the
+    fused cells are those of `python -m gem_tpu fleet --mesh`, printed once,
+    by rank 0."""
+    common = ["--robots", "4", "--frames", "2", "--drift-yaw", "8"]
+    assert jcli.main(["fleet", "--mesh", "--platform", "cpu", *common]) == 0
+    j = _fleet_lines(capfd.readouterr().out)
+    out = _mesh_ranks(tmp_path, capfd, ["--fuse-backend", "segment",
+                                        *common])
+    assert out.count("fleet of 4 robots") == 1
+    t = _fleet_lines(out)
+    assert t[0].endswith("mesh)") and j[0].endswith("mesh)")
+    assert t[1] == j[1] and len(t[1]) == 4
+    assert t[2] == j[2]
+
+
+def test_fleet_mesh_two_ranks_loop_detect_matches_the_jax_cli(tmp_path,
+                                                              capfd):
+    """The loop-detect command over two mesh ranks, one robot each: rank 0
+    gathers both submap stores in robot order and prints JAX's per-robot
+    fused cells, loops and pairs (as sets), and the InterPR records."""
+    cmd = ["--robots", "2", "--frames", "25", "--world-seed", "3",
+           "--drift-yaw", "8", "--drift-x", "1.0", "--loop-detect"]
+    assert jcli.main(["fleet", "--mesh", "--platform", "cpu", *cmd]) == 0
+    j = _fleet_lines(capfd.readouterr().out)
+    out = _mesh_ranks(tmp_path, capfd, [
+        "--fuse-backend", "segment", *cmd, "--publish-interpr",
+        str(tmp_path / "t.npz")])
+    t = _fleet_lines(out)
+    assert "skipped" not in out and out.count("loop-detect:") == 1
+    assert t[1] == j[1]
+    assert t[3]["n_loops"] == j[3]["n_loops"] >= 1
+    assert sorted(map(tuple, t[3]["pairs"])) \
+        == sorted(map(tuple, j[3]["pairs"]))
+    assert f"{t[3]['n_loops']} InterPR records" in out
+    # the one-process fleet gives the same loops from the same robots
+    assert tcli.main(["fleet", "--device", "cpu", "--fuse-backend",
+                      "segment", *cmd]) == 0
+    one = _fleet_lines(capfd.readouterr().out)
+    assert one[1] == t[1] and one[3] == t[3]
 
 
 @pytest.mark.parametrize("flags", [[], ["--mesh"],

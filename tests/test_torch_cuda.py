@@ -135,6 +135,75 @@ def test_k1_matches_plain_on_card(cuda, L, P):
     assert not bool(torch.isnan(fused.elevation).any())
 
 
+def _k1_layout(layout, L, rng):
+    """(cell ids, valid) of a sorted-point layout that stresses K1's owners
+    (a block owns 256 consecutive cells and cuts their points into 8 warp
+    parts by position)."""
+    S = L * L
+    if layout == "one_cell":
+        cells = np.full(20000, S // 2 + 3)
+    elif layout == "tile_edge_runs":
+        heads = [255, 256, 511, 512, 767, 1024, S - 257, S - 256, S - 1]
+        cells = np.repeat(heads, rng.integers(1, 900, len(heads)))
+    elif layout == "runs_of_1_to_7":
+        heads = np.sort(rng.choice(S, S // 3, replace=False))
+        cells = np.repeat(heads, rng.integers(1, 8, len(heads)))
+    elif layout == "empty_head_and_tail_tiles":
+        cells = rng.integers(S // 3, 2 * S // 3, 5000)
+    elif layout == "all_padding":
+        return rng.integers(0, S, 777), np.zeros(777, bool)
+    else:                                   # no point at all
+        cells = np.zeros(0, np.int64)
+    return cells, np.ones(len(cells), bool)
+
+
+@pytest.mark.parametrize("layout", ["one_cell", "tile_edge_runs",
+                                    "runs_of_1_to_7",
+                                    "empty_head_and_tail_tiles",
+                                    "all_padding", "no_points"])
+@pytest.mark.parametrize("with_color", [True, False])
+def test_k1_adversarial_layouts_on_card(cuda, layout, with_color):
+    """K1 against its plain version on layouts that stress its owners: one
+    cell holding every point, runs of 1-900 points on cells that straddle
+    the 256-cell tile edges (the map's last cell included), runs of 1-7
+    points, points only in the middle third (empty head and tail tiles),
+    every lane padding and no point at all; over a prior with half its
+    cells fused.  Heights lie on a 1/16 m grid in [-1, 1] m with 10%
+    lifted 2.5 m (outlier start rows) and variances are 1/16, 1/32 or 1/64
+    (exact v ties), so every weight w and w*h is an integer and the gated
+    sums are exact in any order: every row must equal the plain version's,
+    and a second launch must be bitwise the first."""
+    rng = np.random.default_rng(17)
+    L = 64
+    cfg = benchmark_config(length=L)
+    cells, valid = _k1_layout(layout, L, rng)
+    P = len(cells)
+    col = np.where(rng.random(P) < 0.5, rng.integers(1, 1 << 24, P), 0)
+    h = (np.clip(np.round(rng.normal(size=P) * 0.3 * 16) / 16, -1, 1)
+         + (rng.random(P) < 0.1) * 2.5)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(cuda)
+    batch = PointBatch(
+        xy=torch.zeros((P, 2), device=cuda), height=t(h, np.float32),
+        variance=t(2.0 ** -rng.integers(4, 7, P), np.float32),
+        cell=t(cells, np.int32), color=t(col, np.int32),
+        intensity=t(np.where(col != 0, rng.integers(1, 4, P), 0),
+                    np.float32),
+        valid=t(valid, bool))
+    occ = rng.random(L * L) < 0.5
+    elev0 = t(np.where(occ, rng.normal(size=L * L) * 0.3, -10.0), np.float32)
+    var0 = t(np.where(occ, rng.uniform(1e-4, 0.05, L * L), -10.0),
+             np.float32)
+    args = (*fs.sort_points(batch, L * L, with_color), elev0, var0, cfg.map)
+    k = fs.fuse_stream_aggregate(*args, with_color=with_color)
+    again = fs.fuse_stream_aggregate(*args, with_color=with_color)
+    p = fs.fuse_stream_aggregate_plain(*args, with_color=with_color)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(k, p)
+    assert bool((p[2] > 0).any()) == (layout not in ("all_padding",
+                                                     "no_points"))
+
+
 def test_k1_rejects_wrong_dtype(cuda):
     cfg, m, batch = _inputs(16, 256, cuda)
     args = list(_k1_args(cfg, m, batch))

@@ -1,7 +1,8 @@
 """The port's streaming fuse (gem_tpu_torch/kernels/fuse_stream.py, the
 module of kernel K1) against gem_tpu's `fuse_stream` run in Pallas
 interpret mode, over the cases of tests/test_fuse_stream.py, plus the
-16-row aggregate contract against a per-cell NumPy loop.
+16-row aggregate contract against a per-cell NumPy loop, and point layouts
+that stress the card kernel's owners.
 
 Tolerances: elevation/variance/intensity 5e-6 (f32 sums of a cell's run
 taken in another order than the interpret-mode one-hot dots; the JAX suite's
@@ -107,6 +108,57 @@ def test_random_batch(seed, occ, valid_frac):
     js, ts = _states(rng, cfg.map, occ)
     jb, tb = _random_batches(rng, 40, 2048, valid_frac)
     _compare(*_run_both(cfg, js, ts, jb, tb))
+
+
+def _owner_layout(layout, rng, L):
+    """(cell ids, valid) over L x L cells for layouts that stress K1's
+    owners, blocks of 256 consecutive cells: runs on cells that straddle
+    the tile edges (the map's last cell included), runs of 1-7 points,
+    points only in the middle tiles (empty head and tail tiles), every lane
+    padding."""
+    S = L * L
+    if layout == "tile_edge_runs":
+        heads = [255, 256, 511, 512, 1023, 1024, S - 257, S - 256, S - 1]
+        cells = np.repeat(heads, rng.integers(1, 300, len(heads)))
+    elif layout == "runs_of_1_to_7":
+        heads = np.sort(rng.choice(S, 600, replace=False))
+        cells = np.repeat(heads, rng.integers(1, 8, len(heads)))
+    elif layout == "empty_head_and_tail_tiles":
+        cells = rng.integers(3 * 256, 6 * 256, 2048)
+    else:                                   # all padding
+        return rng.integers(0, S, 1024), np.zeros(1024, bool)
+    return cells, np.ones(len(cells), bool)
+
+
+@pytest.mark.parametrize("layout", ["tile_edge_runs", "runs_of_1_to_7",
+                                    "empty_head_and_tail_tiles",
+                                    "all_padding"])
+def test_owner_layouts(layout):
+    """The JAX-parity comparison on point layouts that stress the card
+    kernel's owners (256-cell tiles, their points cut into warp parts):
+    heights on a 1/16 m grid, 10% lifted 2.5 m (outlier start rows), and
+    variances of 1/16-1/64 (exact ties), half the lanes colored, over a
+    prior with half its cells fused."""
+    rng = np.random.default_rng(40)
+    L = 48
+    cells, valid = _owner_layout(layout, rng, L)
+    P = len(cells)
+    cfg = benchmark_config(length=L, max_points=P)
+    js, ts = _states(rng, cfg.map, 0.5)
+    h = (np.clip(np.round(rng.normal(size=P) * 0.3 * 16) / 16, -1, 1)
+         + (rng.random(P) < 0.1) * 2.5).astype(np.float32)
+    v = (2.0 ** -rng.integers(4, 7, P)).astype(np.float32)
+    col = np.where(rng.random(P) < 0.5, rng.integers(1, 1 << 24, P),
+                   0).astype(np.int32)
+    inten = np.where(col != 0, rng.integers(1, 4, P), 0).astype(np.float32)
+    jb, tb = _batches(L, h, v, cells, valid, col, inten)
+    a, b = _run_both(cfg, js, ts, jb, tb)
+    _compare(a, b)
+    np.testing.assert_array_equal(N(b.intensity), N(a.intensity))
+    if layout == "all_padding":
+        for k in ("elevation", "color", "intensity", "lowest"):
+            np.testing.assert_array_equal(N(getattr(b, k)),
+                                          N(getattr(ts, k)), err_msg=k)
 
 
 def test_all_points_one_cell():
