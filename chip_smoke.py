@@ -30,28 +30,33 @@ host's launch overhead is left out):
      ids);
   6. the fuse backends on one flagship frame: pallas, segment, sort and
      stream against each other, and the `lowest` plane;
-  7. the step on the card vs the same step on the CPU (plain versions),
-     L=256, 10 frames, with the stream and the pallas backend;
+  7. the step on the card (ElevationPipeline: CUDA graphs) vs the same
+     step on the CPU (plain versions), L=256, 10 frames, with the stream
+     and the pallas backend;
   8. the flagship: L=1000, 131072-point frames, raytrace every frame, 30
-     frames at 0.5 m/frame, with launch counters, shed, keyframe and
-     accuracy checks: the stream path (K1, K2), then the pallas path (K3,
-     K2);
+     frames at 0.5 m/frame through ElevationPipeline, with shed, keyframe
+     and accuracy checks and each kernel's launches counted on the device
+     (torch.profiler's kernel events by the kernels' symbols: a replayed
+     graph does not call the wrappers): the stream path (K1, K2), then the
+     pallas path (K3, K2);
   9. the CLI in-process: `run` at the benchmark preset with the pallas
      backend and every product, a resume from its checkpoint (with the
      .bt octomap export), and the kitti preset (orthomosaics stored, the
-     npz pyramid) with the segment backend; then the global-map path,
-     `run --loop-demo --save-octomap x.ot --dense --save-submaps` with the
-     stream backend (K1 and K2 launches counted from 0), and `selftest`;
+     npz pyramid) with the segment backend and `--scan 10`; then the
+     global-map path, `run --loop-demo --save-octomap x.ot --dense
+     --save-submaps` with the stream backend (K1 and K2 launches counted
+     on the device), and `selftest`;
  10. the global map at the flagship's own ring (64 slots x 32768 points):
      a loop-closure re-stitch, densify at orders 2 and 5 on one slot, the
      (512, 512, 128) voxel pyramid of phase 8's global cloud with its .bt
      and .ot files, and the DiSCO signatures of all 64 slots, each on the
      card and on the CPU from the same inputs, with both times;
  11. the fleet: four flagship robots (131072-point frames, uneven point
-     counts and speeds, 10 frames) through `fleet_step` on the stream path,
-     each robot bitwise a separate ElevationPipeline on its frames, K1 and
-     K2 launched once per robot and frame; the same at L=256 on the pallas
-     path (K3 five times per robot and frame); then the README's
+     counts and speeds, 10 frames) through `FleetPipeline` (one CUDA graph
+     per fleet frame) on the stream path, each robot bitwise a separate
+     ElevationPipeline on its frames, K1 and K2 launched once per robot and
+     frame (counted on the device); the same at L=256 on the pallas path
+     (K3 five times per robot and frame); then the README's
      loop-detect command (`fleet --robots 2 --frames 80 --world-seed 3
      --drift-yaw 8 --drift-x 1.0 --loop-detect --publish-interpr`) on the
      card and on the CPU, the same loops and pairs;
@@ -59,10 +64,21 @@ host's launch overhead is left out):
      the flagship ring against the same call over a gloo group on the CPU,
      the halo-exchanged stencil at L=1000 against K2, and a sharded
      checkpoint round trip of phase 11's fleet state.  A ring of several
-     cards cannot run on a one-card machine; the phase line says so.
+     cards cannot run on a one-card machine; the phase line says so;
+ 13. the step as CUDA graphs against the eager step (after phase 8, on its
+     frames with a loop closure at frame 12): ElevationPipeline under
+     set_sync_debug_mode("error") and eager `step`, in turns, bitwise in
+     every state leaf and output after every frame, with both step
+     medians, the output copy's cost, the device-busy share over frames
+     20-29 from torch.profiler and the peak memory of each; scan_steps with
+     T=10 against 10 eager steps, twice, bitwise; and (after phase 11) the
+     4-robot flagship fleet, FleetPipeline against eager `fleet_step`,
+     bitwise, with both fleet-frame medians; and whether `torch.cond`
+     captures into a graph (a child process).
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
-flagship step and fleet-frame medians, one JSON line of per-kernel results,
+step and fleet-frame medians, one JSON line of per-kernel results (its
+`launches` counted on the device in phase 8),
 the nvidia-smi line again, and the last line {"ok": true, "device": {...}}.  Any failure
 raises: the script exits non-zero and prints no result.  It imports no jax.
 
@@ -1055,8 +1071,9 @@ def phase_cli(dev):
         fail_unless(idx == (30, 35), f"cli: frame_idx {idx} != (30, 35)")
         fail_unless(cli(["run", "--device", dev.type, "--preset", "kitti",
                          "--fuse-backend", "segment", "--frames", "30",
-                         "--publish-submaps", p("records"), "--save-octomap",
-                         p("x.npz")]) == 0, "cli: kitti run failed")
+                         "--scan", "10", "--publish-submaps", p("records"),
+                         "--save-octomap", p("x.npz")]) == 0,
+                    "cli: kitti run failed")
         levels = np.load(p("x.npz"))
         fail_unless(levels["road_l0_occ"].shape[2] == 128
                     and levels["road_l0_occ"].any()
@@ -1071,7 +1088,7 @@ def phase_cli(dev):
                     f"cli: record ortho {ortho.shape} {ortho.dtype}")
     print(f"phase 9 cli: ok benchmark/pallas 30 frames map_points={n_map} "
           f"pngs={L}x{L}x3 resumed_frame_idx={idx[1]} bt_leaves={bt_leaves} "
-          f"kitti/segment records={len(recs)} ortho={ortho.shape} "
+          f"kitti/segment --scan 10 records={len(recs)} ortho={ortho.shape} "
           f"npz_levels={len(levels.files)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1102,24 +1119,21 @@ def phase_global_map_cli(dev):
     preset, because a densified submap is a 12.8 m grid anchored at its
     slot's minimum x and y, which the benchmark preset's 100 m window
     leaves empty.)"""
-    wrappers = kernel_wrappers()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         p = lambda name: os.path.join(d, name)
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        rc, out = run_cli(["run", "--device", dev.type, "--preset",
-                           "kitti", "--frames", "40", "--speed", "1.0",
-                           "--loop-demo", "--save-map", p("map.pcd"),
-                           "--save-octomap", p("x.ot"), "--dense",
-                           "--save-submaps", p("subs")])
-        launches = {k: w.launches for k, w in wrappers.items()}
+        with counted_launches() as counts:
+            rc, out = run_cli(["run", "--device", dev.type, "--preset",
+                               "kitti", "--frames", "40", "--speed", "1.0",
+                               "--loop-demo", "--save-map", p("map.pcd"),
+                               "--save-octomap", p("x.ot"), "--dense",
+                               "--save-submaps", p("subs")])
+        launches = counts["device"]
         fail_unless(rc == 0, "global-map cli: run failed")
-        fail_unless(launches == {"fuse_stream_aggregate": 40,
-                                 "plane_fit_features": 40,
-                                 "segment_stats_sorted": 0},
-                    f"global-map cli: launch counts {launches}")
+        check_launches(counts, {"fuse_stream_aggregate": 40,
+                                "plane_fit_features": 40,
+                                "segment_stats_sorted": 0},
+                       "global-map cli")
         stats = json.loads(out.split("loop closure: ")[1].splitlines()[0])
         fail_unless(stats["n_corrected"] >= 2 and stats["n_pairs"] > 0
                     and stats["n_cells_fused"] > 0,
@@ -1389,28 +1403,24 @@ def single_pipelines(cfg, streams, dev, backend):
 
 
 def fleet_run(cfg, streams, dev, backend):
-    """The streams through `fleet_step`, every launch count set to 0 just
-    before and read just after.  Returns (fleet state, launches, per-frame
-    ms, peak device memory)."""
-    from gem_tpu_torch.multirobot.fleet import (fleet_step, make_fleet_state,
-                                                stack_frames)
+    """The streams through `FleetPipeline` (one CUDA graph per fleet
+    frame), launches counted on the device.  Returns (fleet state, launch
+    counts, per-frame ms, peak device memory)."""
+    from gem_tpu_torch.multirobot.fleet import FleetPipeline, stack_frames
 
     R, T = len(streams), len(streams[0])
-    fleet = make_fleet_state(cfg, R, dev)
     stacked = [stack_frames([s[t] for s in streams]) for t in range(T)]
-    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
     times = []
-    for frames in stacked:
-        t0 = time.perf_counter()
-        fleet, _ = fleet_step(fleet, frames, cfg, fuse_backend=backend)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    return fleet, launches, times, torch.cuda.max_memory_allocated()
+    with counted_launches() as counts:
+        fleet = FleetPipeline(cfg, R, dev, fuse_backend=backend)
+        for frames in stacked:
+            t0 = time.perf_counter()
+            fleet.process(frames)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return fleet.state, counts, times, torch.cuda.max_memory_allocated()
 
 
 def fleet_equals_singles(fleet, singles, what):
@@ -1429,10 +1439,12 @@ def phase_fleet(dev):
     """Phase 11: four robots of the flagship (1000^2 cells, 131072-point
     frames with uneven point counts, 10 frames at 1.2-1.5 m per frame, so
     each robot passes the 10 m keyframe distance once) through
-    `fleet_step` on the stream path, each robot bitwise a separate
-    ElevationPipeline on its frames; then a 4-robot fleet at L=256 on the
-    pallas path.  Returns (fleet state, its config, launches of both
-    fleets)."""
+    `FleetPipeline` (one CUDA graph per fleet frame) on the stream path,
+    each robot bitwise a separate ElevationPipeline on its frames; then a
+    4-robot fleet at L=256 on the pallas path; then phase 13's fleet
+    check on the stream fleet's frames.  Returns ({backend: (fleet
+    state, its config, launches, fleet-frame median)}, phase 13's (graph,
+    eager) fleet-frame medians)."""
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.io.replay import synthetic_frames
 
@@ -1445,13 +1457,12 @@ def phase_fleet(dev):
         streams = [[f for f, _, _ in synthetic_frames(
             cfg, T, n_points=n_pts(r), speed=1.2 + 0.1 * r, seed=10 + r,
             device=dev)] for r in range(R)]
-        fleet, launches, times, peak = fleet_run(cfg, streams, dev, backend)
+        fleet, counts, times, peak = fleet_run(cfg, streams, dev, backend)
+        launches = counts["device"]
         per = {"stream": (1, 1, 0), "pallas": (0, 1, 5)}[backend]
-        want = {k: n * R * T for k, n in zip(
+        check_launches(counts, {k: n * R * T for k, n in zip(
             ("fuse_stream_aggregate", "plane_fit_features",
-             "segment_stats_sorted"), per)}
-        fail_unless(launches == want, f"fleet {backend}: launch counts "
-                    f"{launches}, expected {want}")
+             "segment_stats_sorted"), per)}, f"fleet {backend}")
         fleet_equals_singles(fleet, single_pipelines(cfg, streams, dev,
                                                      backend),
                              f"fleet {backend}")
@@ -1463,15 +1474,18 @@ def phase_fleet(dev):
         med = statistics.median(times[1:])
         print(f"phase 11 fleet {backend} R={R} L={cfg.map.length} "
               f"P={cfg.max_points} points={[n_pts(r) for r in range(R)]} "
-              f"{T} frames: ok robots_vs_single_pipelines=bitwise "
-              f"launches={launches} fleet_frame_ms_median(2..{T})={med:.3f} "
+              f"{T} frames (FleetPipeline: CUDA graph, profiled): ok "
+              f"robots_vs_single_pipelines=bitwise device_launches="
+              f"{launches} fleet_frame_ms_median(2..{T})={med:.3f} "
               f"per_robot_ms={med / R:.3f} first_frame_ms={times[0]:.1f} "
               f"max_memory_allocated={peak} per_robot_fused_cells={fused} "
               f"num_submaps={fleet.submaps.num_submaps.tolist()} "
               f"dropped={fleet.submaps.dropped.tolist()}", flush=True)
         out[backend] = (fleet, cfg, launches, med)
+        if backend == "stream":
+            graph_ms = phase_graph_fleet(dev, cfg, streams)
         del streams
-    return out
+    return out, graph_ms
 
 
 def phase_fleet_cli(dev):
@@ -1607,6 +1621,60 @@ def kernel_wrappers():
             "segment_stats_sorted": segment_stats_sorted}
 
 
+# each wrapper's kernel, by the symbol the profiler names its launches with
+KERNEL_SYMBOLS = {"fuse_stream_aggregate": "fuse_stream_aggregate_kernel",
+                  "plane_fit_features": "plane_fit_kernel",
+                  "segment_stats_sorted": "segment_stats_kernel"}
+
+
+def device_events(prof):
+    """The CUDA-side events of a torch.profiler run: kernels, copies and
+    fills, each with its name and time range (us)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """Count each kernel's launches on the device inside the block.  A
+    replayed CUDA graph launches its kernels without calling the wrappers,
+    so the counts come from torch.profiler's CUDA kernel events, by the
+    kernels' own symbols.  The wrappers' counts are set to 0 just before
+    too; they then count the eager first frame and the captures.  Yields a
+    dict that is filled on exit: {"device": {name: n}, "wrapper": {name:
+    n}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wrappers = kernel_wrappers()
+    counts = {}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # let the tracer come up before the counted work starts (one run's
+        # fleet count came out one kernel short without this wait)
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        yield counts
+        torch.cuda.synchronize()
+    names = [e.name for e in device_events(prof)]
+    counts["device"] = {k: sum(sym in n for n in names)
+                        for k, sym in KERNEL_SYMBOLS.items()}
+    counts["wrapper"] = {k: w.launches for k, w in wrappers.items()}
+
+
+def check_launches(counts, want, what):
+    """The device counts equal `want` ({name: n}); every wrapper of a
+    kernel the path launches was called (eager first frame, capture), and
+    no other."""
+    fail_unless(counts["device"] == want, f"{what}: device launch counts "
+                f"{counts['device']}, expected {want}")
+    fail_unless(all((counts["wrapper"][k] > 0) == (n > 0)
+                    for k, n in want.items()),
+                f"{what}: wrapper calls {counts['wrapper']} for {want}")
+
+
 def phase_flagship(dev, backend, frames, world):
     """30 flagship frames through ElevationPipeline with `backend`; every
     launch count is set to 0 just before and read just after.  Returns
@@ -1622,25 +1690,22 @@ def phase_flagship(dev, backend, frames, world):
                          "segment_stats_sorted": 0},
               "pallas": {"fuse_stream_aggregate": 0, "plane_fit_features": 1,
                          "segment_stats_sorted": 5}}[backend]
-    pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
-    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
     times, sheds, fused = [], [], []
-    for f in frames:
-        t0 = time.perf_counter()
-        out = pipe.process(f)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        sheds.append(int(out.metrics["shed_count"]))
-        fused.append(int(out.metrics["cells_fused"]))
-    launches = {k: w.launches for k, w in wrappers.items()}
+    with counted_launches() as counts:
+        pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
+        for f in frames:
+            t0 = time.perf_counter()
+            out = pipe.process(f)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            sheds.append(int(out.metrics["shed_count"]))
+            fused.append(int(out.metrics["cells_fused"]))
+    launches = counts["device"]
     st = pipe.state
-    fail_unless(launches == {k: n * n_frames for k, n in expect.items()},
-                f"flagship {backend}: launch counts {launches}, expected "
-                f"{expect} per frame over {n_frames} frames")
+    check_launches(counts, {k: n * n_frames for k, n in expect.items()},
+                   f"flagship {backend}")
     fail_unless(fused[-1] > 0, "flagship: no cells fused")
     fail_unless(max(sheds) > 0, "flagship: no band was ever shed")
     fail_unless(int(st.submaps.num_submaps) >= 1,
@@ -1670,13 +1735,314 @@ def phase_flagship(dev, backend, frames, world):
     from gem_tpu_torch.io.cli import _global_cloud
     cloud = _global_cloud(pipe, cfg)
     print(f"phase 8 flagship {backend} L=1000 P=131072 raytrace_every=1 "
-          f"{n_frames} frames: ok step_ms_median(5..30)={step_ms:.3f} "
+          f"{n_frames} frames (ElevationPipeline: CUDA graph, profiled): ok "
+          f"step_ms_median(5..30)={step_ms:.3f} "
           f"step_ms_min={min(times[5:]):.3f} first_frame_ms={times[0]:.1f} "
           f"cells_fused={fused[-1]} shed_frames={sum(s > 0 for s in sheds)} "
           f"num_submaps={int(st.submaps.num_submaps)} rmse_vs_truth={rmse:.5f}"
-          f" median_abs_err={med:.5f} launches={launches} "
+          f" median_abs_err={med:.5f} device_launches={launches} "
+          f"wrapper_calls={counts['wrapper']} "
           f"max_memory_allocated={peak}", flush=True)
     return launches, step_ms, cloud, st.map
+
+
+@contextlib.contextmanager
+def sync_free():
+    """`torch.cuda.set_sync_debug_mode("error")` inside the block: any
+    synchronising operation (a host read, a blocking upload) raises."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def differing_leaves(a, b):
+    """The leaves of two trees that are not bitwise equal (type included)."""
+    from gem_tpu_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(a), tree_leaves(b)
+    fail_unless(a.keys() == b.keys(), "graph vs eager: other leaves")
+    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or a[k].shape != b[k].shape
+            or not torch.equal(raw(a[k]), raw(b[k]))]
+
+
+def with_jump(frames, at):
+    """The frames with a loop closure at frame `at`: the pose jumps 0.5 m
+    and 0.3 m up there and stays so (the jump settles and finishes)."""
+    import dataclasses
+
+    out = list(frames)
+    shift = torch.tensor([0.5, 0.0, 0.3], device=frames[0].points.device)
+    for i in range(at, len(out)):
+        out[i] = dataclasses.replace(
+            out[i], track_position=out[i].track_position + shift)
+    out[at] = dataclasses.replace(out[at], loop_closure=torch.ones(
+        (), dtype=torch.bool, device=shift.device))
+    return out
+
+
+def busy_share(prof, wall_s):
+    """(union of the device events' time over `wall_s`, device events, the
+    sum of their durations in ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_events(prof))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / (wall_s * 1e6), len(spans), sum(b - a for a, b in
+                                                  spans) / 1e3
+
+
+def profiled_drive(run_frame, frames, lo=20):
+    """Frames through `run_frame`, synced after each; frames lo..end under
+    torch.profiler (CUDA events only).  Returns (busy share over those
+    frames, device events per frame, device ms per frame, peak device
+    memory the drive added)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for f in frames[:lo]:
+        run_frame(f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in frames[lo:]:
+            run_frame(f)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share, n_ev, dev_ms = busy_share(prof, wall)
+    n = len(frames) - lo
+    return share, n_ev / n, dev_ms / n, torch.cuda.max_memory_allocated() \
+        - base
+
+
+def masked_branch_ms(cfg, state, frame):
+    """Device ms (CUDA graph of 20 calls) of what the selects add to every
+    frame where their branch is not taken, at `state`: re_anchor and the
+    select of its planes against the move's, the masked staging flush, and
+    the masked keyframe finalize with its grid snapshot.  With a False
+    predicate each leaves the store as it was, so the calls repeat."""
+    from gem_tpu_torch.core.move import move, re_anchor
+    from gem_tpu_torch.global_map import submaps as sm
+    from gem_tpu_torch.utils.tree import tree_select
+
+    no = torch.zeros((), dtype=torch.bool, device=frame.points.device)
+    track = frame.track_position
+    ms, store = state.map, state.submaps
+    moved, _ = move(ms, cfg.map, track)
+    pose = torch.cat([track, frame.pose_quat])
+    return {
+        "jump_select": graph_ms(lambda: tree_select(no, re_anchor(
+            ms, cfg.map, track, track[2] - state.last_track_z), moved), 20),
+        "staging_flush": graph_ms(lambda: sm.flush_staging(store, no), 20),
+        "keyframe_finalize": graph_ms(lambda: sm.finalize_submap(
+            store, sm.grid_to_points(ms, cfg, ms.traver), pose, when=no),
+            20)}
+
+
+def phase_graph(dev, frames):
+    """Phase 13: the step as CUDA graphs against the eager `step` loop, at
+    the flagship (phase 8's 30 frames, frame 12 closing a loop, one
+    keyframe), for both paths:
+      * every frame through `ElevationPipeline.process` under
+        set_sync_debug_mode("error") and through eager `step` (also under
+        it), in turns; every state leaf and every output bitwise equal
+        after every frame (the jump frame replays the graph captured on
+        frame 0: frames always carry `loop_closure`); the median step of
+        each over frames 5-29;
+      * the cost of copying a frame's outputs out of the graph, as a
+        replay does, and the device time of what the untaken selects add
+        (`masked_branch_ms`);
+      * each alone on fresh state, frames 20-29 under torch.profiler:
+        device-busy share of wall time, device events and device ms per
+        frame, and the peak memory each drive adds;
+      * `ElevationPipeline.scan_steps` (T=10, one graph of 10 steps) on
+        frames 0-9 and then 10-19 against 20 eager steps, bitwise, with
+        the per-frame time of the second call (a replay).
+    Returns {backend: (graph median ms, eager median ms)}."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+    from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = benchmark_config()
+    jumped = with_jump(frames, 12)
+    out = {}
+    for backend in ("stream", "pallas"):
+        t0 = time.perf_counter()
+        pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
+        state = init_pipeline_state(cfg, dev)
+        t_graph, t_eager, jumps, keyframes = [], [], 0, 0
+        for i, f in enumerate(jumped):
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with sync_free():
+                    if side == 0:
+                        got = pipe.process(f)
+                    else:
+                        state, ref = step(state, f, cfg, backend)
+                torch.cuda.synchronize()
+                (t_graph if side == 0 else t_eager).append(
+                    (time.perf_counter() - t1) * 1e3)
+            bad = differing_leaves(pipe.state, state) \
+                + differing_leaves(got, ref)
+            fail_unless(not bad, f"graph {backend} frame {i}: {bad} differ "
+                        f"from the eager step")
+            jumps += bool(state.jump_odom)
+            keyframes += bool(ref.keyframe_due)
+        fail_unless(jumps > 0 and keyframes > 0,
+                    f"graph {backend}: jump frames {jumps}, keyframes "
+                    f"{keyframes}")
+        g_ms = statistics.median(t_graph[5:])
+        e_ms = statistics.median(t_eager[5:])
+        copy_ms = cuda_ms(lambda: tree_map(torch.clone, got), 20)
+        out_bytes = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(got).values())
+        masked = masked_branch_ms(cfg, state, jumped[-1])
+        del pipe, state, got, ref
+
+        held = {}
+
+        def graph_frame(f):
+            if "pipe" not in held:
+                held["pipe"] = ElevationPipeline(cfg, device=dev,
+                                                 fuse_backend=backend)
+            held["pipe"].process(f)
+
+        def eager_frame(f):
+            if "state" not in held:
+                held["state"] = init_pipeline_state(cfg, dev)
+            held["state"], _ = step(held["state"], f, cfg, backend)
+
+        g_busy = profiled_drive(graph_frame, jumped)
+        held.clear()
+        e_busy = profiled_drive(eager_frame, jumped)
+        held.clear()
+
+        # scan_steps: T=10 in one graph, twice, against 20 eager steps
+        pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
+        state = init_pipeline_state(cfg, dev)
+        for lo in (0, 10):
+            chunk = frames[lo:lo + 10]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with sync_free():
+                m = pipe.scan_steps(chunk)
+            torch.cuda.synchronize()
+            scan_ms = (time.perf_counter() - t1) * 1e3 / 10
+            t1 = time.perf_counter()
+            rows = []
+            for f in chunk:
+                state, ref = step(state, f, cfg, backend)
+                rows.append(ref.metrics["cells_fused"])
+            torch.cuda.synchronize()
+            loop_ms = (time.perf_counter() - t1) * 1e3 / 10
+            bad = differing_leaves(pipe.state, state)
+            fail_unless(not bad and bitwise_equal(m["cells_fused"],
+                                                  torch.stack(rows)),
+                        f"scan_steps {backend} frames {lo}-{lo + 9}: {bad}")
+        del pipe, state
+        print(f"phase 13 graph {backend} L={cfg.map.length} P="
+              f"{cfg.max_points} {len(jumped)} frames (jump at 12, "
+              f"{keyframes} keyframes): ok graph_vs_eager=bitwise every "
+              f"frame, state and outputs; sync_debug=error "
+              f"step_ms_median(5..29) graph={g_ms:.3f} eager="
+              f"{e_ms:.3f} first_frame_ms graph={t_graph[0]:.1f} eager="
+              f"{t_eager[0]:.1f} output_copy_ms={copy_ms:.4f} "
+              f"({out_bytes} bytes) masked_branch_device_ms="
+              f"{json.dumps({k: round(v, 4) for k, v in masked.items()})} "
+              f"profile(frames 20..29) graph: busy_share={g_busy[0]:.4f} "
+              f"device_events_per_frame={g_busy[1]:.1f} device_ms_per_frame="
+              f"{g_busy[2]:.3f} peak_bytes={g_busy[3]}; eager: busy_share="
+              f"{e_busy[0]:.4f} device_events_per_frame={e_busy[1]:.1f} "
+              f"device_ms_per_frame={e_busy[2]:.3f} peak_bytes={e_busy[3]}; "
+              f"scan_steps T=10 frames 0-19 bitwise, replay ms_per_frame="
+              f"{scan_ms:.3f} eager_loop ms_per_frame={loop_ms:.3f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        out[backend] = (g_ms, e_ms)
+    return out
+
+
+COND_PROBE = r"""
+import torch
+pred = torch.ones((), dtype=torch.bool, device="cuda")
+x = torch.arange(4.0, device="cuda")
+torch.cond(pred, lambda t: t * 2, lambda t: t + 1, (x,))
+torch.cuda.synchronize()
+g = torch.cuda.CUDAGraph()
+try:
+    with torch.cuda.graph(g):
+        y = torch.cond(pred, lambda t: t * 2, lambda t: t + 1, (x,))
+    g.replay()
+    pred.fill_(False)
+    g.replay()
+    torch.cuda.synchronize()
+    print("captures, replay with pred False:", y.tolist())
+except RuntimeError as e:
+    print("fails:", type(e).__name__, str(e).splitlines()[0])
+"""
+
+
+def phase_cond_probe():
+    """Phase 13, the conditional-node route: does `torch.cond` capture
+    into a CUDA graph (a conditional node, which would let the keyframe
+    finalize pay only when taken)?  In a child process, since a failed
+    capture may leave the context unusable."""
+    out = subprocess.run([sys.executable, "-c", COND_PROBE],
+                         capture_output=True, text=True, timeout=300)
+    lines = ((out.stdout or out.stderr).strip().splitlines()
+             or ["no output"])
+    print(f"phase 13 torch.cond under CUDA graph capture (torch "
+          f"{torch.__version__}): {lines[-1]} (exit {out.returncode})",
+          flush=True)
+
+
+def phase_graph_fleet(dev, cfg, streams):
+    """Phase 13, the fleet: phase 11's four flagship robots through
+    `FleetPipeline` (one CUDA graph per fleet frame) under
+    set_sync_debug_mode("error") and through eager `fleet_step`, in turns;
+    state and outputs bitwise after every frame, the fleet-frame median of
+    each over frames 2-10.  Returns (graph ms, eager ms)."""
+    from gem_tpu_torch.multirobot.fleet import (FleetPipeline, fleet_step,
+                                                make_fleet_state,
+                                                stack_frames)
+
+    R, T = len(streams), len(streams[0])
+    fleet = FleetPipeline(cfg, R, dev)
+    ref = make_fleet_state(cfg, R, dev)
+    t_graph, t_eager = [], []
+    for t in range(T):
+        frames = stack_frames([s[t] for s in streams])
+        for side in ((0, 1) if t % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if side == 0:
+                with sync_free():
+                    got = fleet.process(frames)
+            else:
+                ref, want = fleet_step(ref, frames, cfg)
+            torch.cuda.synchronize()
+            (t_graph if side == 0 else t_eager).append(
+                (time.perf_counter() - t1) * 1e3)
+        bad = differing_leaves(fleet.state, ref) + differing_leaves(got, want)
+        fail_unless(not bad, f"graph fleet frame {t}: {bad} differ")
+    g_ms, e_ms = statistics.median(t_graph[1:]), statistics.median(
+        t_eager[1:])
+    print(f"phase 13 graph fleet stream R={R} L={cfg.map.length} {T} frames: "
+          f"ok graph_vs_eager_fleet_step=bitwise every frame; "
+          f"sync_debug=error fleet_frame_ms_median(2..{T}) graph={g_ms:.3f} "
+          f"eager={e_ms:.3f} first_frame_ms graph={t_graph[0]:.1f} "
+          f"eager={t_eager[0]:.1f}", flush=True)
+    return g_ms, e_ms
 
 
 def main():
@@ -1720,6 +2086,7 @@ def main():
         dev, "stream", frames, world)
     launches_pallas, step_pallas, _, _ = phase_flagship(dev, "pallas", frames,
                                                         world)
+    graph_ms = phase_graph(dev, frames)
     del frames
     # phase 4 after the flagship: its second state is the stream path's map
     cfg = benchmark_config()
@@ -1730,7 +2097,8 @@ def main():
     phase_global_map_cli(dev)
     phase_global_map(dev, cloud)
     del cloud
-    fleets = phase_fleet(dev)
+    fleets, fleet_graph_ms = phase_fleet(dev)
+    phase_cond_probe()
     phase_fleet_cli(dev)
     phase_distributed(dev, *fleets["stream"][:2])
     fleet_launches = {**fleets["stream"][2], "segment_stats_sorted":
@@ -1776,10 +2144,15 @@ def main():
          "library_eager_ms": k3_main["library_eager"],
          "wrapper_ms": k3_main["wrapper"]},
     ]
-    print(f"flagship step_ms_median stream={step_stream:.3f} "
-          f"pallas={step_pallas:.3f} fleet_frame_ms_median(R=4) "
+    print(f"flagship step_ms_median graph stream={graph_ms['stream'][0]:.3f} "
+          f"pallas={graph_ms['pallas'][0]:.3f}, eager stream="
+          f"{graph_ms['stream'][1]:.3f} pallas={graph_ms['pallas'][1]:.3f} "
+          f"(phase 13); profiled graph stream={step_stream:.3f} pallas="
+          f"{step_pallas:.3f} (phase 8); fleet_frame_ms_median(R=4) graph "
           f"stream={fleet_ms['stream']:.3f} pallas(L=256)="
-          f"{fleet_ms['pallas']:.3f}", flush=True)
+          f"{fleet_ms['pallas']:.3f} (phase 11), stream graph="
+          f"{fleet_graph_ms[0]:.3f} eager={fleet_graph_ms[1]:.3f} "
+          f"(phase 13)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

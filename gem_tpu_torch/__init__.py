@@ -17,7 +17,8 @@ and function names so each module's counterpart is obvious:
     render/      costmaps, inflation, orthomosaic, heatmap, grid cloud
     io/          synthetic and npz replay, npz checkpoints, PCD, KITTI
                  conversion, the CLI (`python -m gem_tpu_torch run`)
-    utils/       precision rules, metrics / torch.profiler, PNG writer
+    utils/       precision rules, metrics / torch.profiler, PNG writer,
+                 CUDA graphs (graph.py: the counterpart of jax.jit)
     native/      the C++ host runtime (voxel filter, cell dedup, file
                  prefetcher), built with g++ into build/gem_tpu_torch/
     config.py, msgs.py  the configuration tree and the record types
@@ -29,7 +30,9 @@ the port reads nothing under gem_tpu/.
 State is frozen dataclasses of tensors, functions are plain tensor code, and
 every constructor takes an explicit `device`.  On CPU tensors each kernel
 wrapper runs its plain PyTorch version; on CUDA tensors it launches the
-hand-written kernel.  This package never imports jax.
+hand-written kernel.  The step reads nothing to the host, and on the card
+ElevationPipeline and the fleet replay it as CUDA graphs.  The top-level
+names are those `gem_tpu` exports.  This package never imports jax.
 """
 
 import torch
@@ -41,3 +44,23 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from gem_tpu_torch.config import (  # noqa: F401,E402
+    MapConfig,
+    SensorConfig,
+    RobotConfig,
+    PipelineConfig,
+    kitti_config,
+    yq_config,
+    benchmark_config,
+)
+from gem_tpu_torch.core.state import (  # noqa: E402,F401
+    MapState, init_map_state)
+
+
+def __getattr__(name):  # lazy: keep `import gem_tpu_torch` light
+    if name in ("ElevationPipeline", "Frame", "PipelineState", "step"):
+        from gem_tpu_torch.mapping import pipeline as _p
+
+        return getattr(_p, name)
+    raise AttributeError(name)

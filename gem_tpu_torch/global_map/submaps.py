@@ -3,14 +3,21 @@
 Counterpart of gem_tpu/global_map/submaps.py: a ring of K submap slots, each
 a fixed-(capacity,) struct of arrays plus a count, a live accumulator, and a
 staging ring that defers the shed compaction (SubmapConfig.staging_frames).
-Appends are cumsum compaction plus one scatter; targets past the capacity
-land in a dump row that is cut off, so no append reads a count to the host.
+Appends are a cumsum over the new points and, per field, one gather of the
+capacity's rows; points past the capacity are counted as dropped, so no
+append reads a count to the host.
 
 In place: the large rings, `staging`, `slots` and `orthos`, are updated in
-place (one band copy per frame, one slot copy per keyframe) instead of being
+place (one band copy per frame, one slot copy per finalize) instead of being
 rebuilt, which would copy ~60 MB each per frame at the flagship size.  The
 store passed to `append_shed`, `flush_staging` and `finalize_submap` is
 consumed; use the returned one.
+
+No host read: the staging row is a device index, and the flush and the
+finalize take a () bool `when` instead of a Python branch (the step's
+selects for JAX's `lax.cond`).  They then run on every frame and keep the
+old values where `when` is False; a ring slot is rewritten with its own
+rows.
 """
 
 from __future__ import annotations
@@ -111,28 +118,32 @@ def init_store(cfg, device) -> SubmapStore:
 
 def _compact_append(buf: PointBuffer, count, new: PointBuffer):
     """Append new.valid points into buf at positions [count, ...),
-    compacted: the i-th valid input goes to count + (#valid before i)."""
+    compacted: the i-th valid input goes to count + (#valid before i);
+    inputs past the capacity are dropped and counted.
+
+    Written as a gather: output row j >= count takes the valid input of
+    rank j - count, found by `searchsorted` on the running count of valid
+    inputs, so the work is (capacity) gathers plus one cumsum whatever the
+    input size.  The JAX version scatters every input, the invalid ones to
+    a dump row; both place every point alike.  Every output color passes
+    through f32 as in JAX's stacked scatter (exact for rgb < 2^24)."""
     C = buf.capacity
-    v = new.valid
-    pos = count + torch.cumsum(v.to(torch.int32), 0) - 1
-    keep = v & (pos < C)
-    appended = keep.sum(dtype=torch.int32)
-    dropped = v.sum(dtype=torch.int32) - appended
-    tgt = torch.where(keep, pos, C).long()           # row C: dump, cut off
-    # one stacked scatter; every field is exact in f32 (rgb < 2^24)
-    newmat = torch.stack(
-        [new.x, new.y, new.z, new.variance, new.intensity, new.traver,
-         new.color.to(torch.float32), torch.ones_like(new.x)], dim=1)
-    bufmat = torch.stack(
-        [buf.x, buf.y, buf.z, buf.variance, buf.intensity, buf.traver,
-         buf.color.to(torch.float32), buf.valid.to(torch.float32)], dim=1)
-    m = torch.cat([bufmat, bufmat.new_zeros((1, 8))])
-    m.index_copy_(0, tgt, newmat)
-    m = m[:C]
-    out = PointBuffer(x=m[:, 0], y=m[:, 1], z=m[:, 2], variance=m[:, 3],
-                      intensity=m[:, 4], traver=m[:, 5],
-                      color=m[:, 6].to(torch.int32), valid=m[:, 7] > 0.5)
-    return out, count + appended, dropped
+    n = new.valid.shape[0]
+    if n == 0:
+        return buf, count, torch.zeros_like(count)
+    ranks = torch.cumsum(new.valid, 0, dtype=torch.int32)   # inclusive
+    total = ranks[-1]
+    appended = torch.clamp(torch.minimum(total, C - count), min=0)
+    rank = torch.arange(C, dtype=torch.int32, device=ranks.device) - count
+    take = (rank >= 0) & (rank < appended)
+    src = torch.clamp(torch.searchsorted(ranks, rank + 1), max=n - 1)
+    pick = lambda f: torch.where(take, getattr(new, f)[src], getattr(buf, f))
+    out = PointBuffer(
+        x=pick("x"), y=pick("y"), z=pick("z"), variance=pick("variance"),
+        intensity=pick("intensity"), traver=pick("traver"),
+        color=pick("color").to(torch.float32).to(torch.int32),
+        valid=take | buf.valid)
+    return out, count + appended, total - appended
 
 
 def shed_to_buffer(shed: ShedCells) -> PointBuffer:
@@ -141,29 +152,47 @@ def shed_to_buffer(shed: ShedCells) -> PointBuffer:
                        color=shed.color, valid=shed.valid)
 
 
-def flush_staging(store: SubmapStore) -> SubmapStore:
+def _select(when, new, old):
+    """`new` where the branch is taken; `when` None: always."""
+    return new if when is None else torch.where(when, new, old)
+
+
+def _cleared(when, old):
+    """Zeros where the branch is taken; `when` None: always."""
+    return torch.zeros_like(old) if when is None else old.masked_fill(when, 0)
+
+
+def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     """Compact every staged shed band into the accumulator, in frame order
-    (unstaged rows carry valid=False)."""
+    (unstaged rows carry valid=False).  With a () bool `when`, only where
+    it is True: the compaction runs either way and the store keeps its old
+    leaves where `when` is False (the select for JAX's `lax.cond`)."""
     st = store.staging
     if st.x.shape[0] == 0:
         return store
     flat = PointBuffer(**{f: getattr(st, f).reshape(-1) for f in _FIELDS})
     accum, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                           flat)
-    st.valid.zero_()
-    return store.replace(accum=accum, accum_count=cnt,
-                         dropped=store.dropped + dropped,
-                         staging_used=torch.zeros_like(store.staging_used))
+    if when is None:
+        st.valid.zero_()
+    else:
+        st.valid.logical_and_(~when)
+    return store.replace(
+        accum=PointBuffer(**{f: _select(when, getattr(accum, f),
+                                        getattr(store.accum, f))
+                             for f in _FIELDS}),
+        accum_count=_select(when, cnt, store.accum_count),
+        dropped=_select(when, store.dropped + dropped, store.dropped),
+        staging_used=_cleared(when, store.staging_used))
 
 
-def append_shed(store: SubmapStore, shed: ShedCells,
-                staged: int | None = None) -> SubmapStore:
+def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
     """Accumulate this frame's evicted cells into the current submap.
 
-    With staging on, the band is parked in row `staged` of the ring (the
-    host's copy of `store.staging_used`; read from the device when None) and
-    the ring is compacted when it fills.  A shed of another width flushes
-    and compacts at once."""
+    With staging on, the band is written into row `staging_used` of the
+    ring (a device index, so no count is read to the host) and the ring is
+    compacted on the frame it fills, by a mask.  A shed of another width
+    flushes and compacts at once."""
     S = store.staging.x.shape[0]
     if S == 0 or shed.x.shape[-1] != store.staging.x.shape[-1]:
         store = flush_staging(store)
@@ -171,12 +200,13 @@ def append_shed(store: SubmapStore, shed: ShedCells,
                                               shed_to_buffer(shed))
         return store.replace(accum=accum, accum_count=cnt,
                              dropped=store.dropped + dropped + shed.dropped)
-    i = int(store.staging_used) if staged is None else staged
+    row = store.staging_used.reshape(1).long()
     for f in _FIELDS:
-        getattr(store.staging, f)[i].copy_(getattr(shed, f))
-    store = store.replace(staging_used=store.staging_used + 1,
+        getattr(store.staging, f).index_copy_(0, row, getattr(shed, f)[None])
+    used = store.staging_used + 1
+    store = store.replace(staging_used=used,
                           dropped=store.dropped + shed.dropped)
-    return flush_staging(store) if i + 1 >= S else store
+    return flush_staging(store, when=used >= S)
 
 
 def grid_to_points(state: MapState, cfg, traver) -> PointBuffer:
@@ -201,35 +231,41 @@ def grid_to_points(state: MapState, cfg, traver) -> PointBuffer:
 
 def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
                     keyframe_pose, ortho=None, kf_points=None,
-                    kf_count=None) -> SubmapStore:
+                    kf_count=None, when=None) -> SubmapStore:
     """Close the current submap: accumulator + grid snapshot -> next ring
     slot; optional (L, L, 3) orthomosaic `ortho` (written in place into
     the `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
-    `kf_count` valid rows."""
+    `kf_count` valid rows.  With a () bool `when`, only where it is True:
+    the slot is rewritten with its old rows and every counter stays where
+    `when` is False."""
     K = store.counts.shape[0]
     slot = torch.remainder(store.num_submaps, K).reshape(1).long()
-    store = flush_staging(store)   # staged bands precede the grid snapshot
+    store = flush_staging(store, when)   # staged bands precede the snapshot
     merged, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                            grid_points)
+
+    def write_slot(ring, value):
+        ring.index_copy_(0, slot, _select(when, value[None],
+                                          ring.index_select(0, slot)))
+
     for f in _FIELDS:
-        getattr(store.slots, f).index_copy_(0, slot,
-                                            getattr(merged, f)[None])
+        write_slot(getattr(store.slots, f), getattr(merged, f))
     if ortho is not None and store.orthos.shape[1] > 0:
-        store.orthos.index_copy_(0, slot, ortho.to(torch.uint8)[None])
+        write_slot(store.orthos, ortho.to(torch.uint8))
     pose = keyframe_pose.to(torch.float32)
-    put = lambda arr, v: arr.index_copy(0, slot, v[None])
+    put = lambda arr, v: _select(when, arr.index_copy(0, slot, v[None]), arr)
     kf_pts, kf_counts = store.kf_points, store.kf_counts
     if kf_points is not None and store.kf_points.shape[1] > 0:
         kf_pts = put(kf_pts, kf_points.to(torch.float32))
         kf_counts = put(kf_counts, kf_count.to(torch.int32))
-    C = store.accum.capacity
     return store.replace(
         counts=put(store.counts, cnt),
         centers=put(store.centers, pose[:2]),
         poses=put(store.poses, pose),
-        num_submaps=store.num_submaps + 1,
+        num_submaps=_select(when, store.num_submaps + 1, store.num_submaps),
         kf_ids=put(store.kf_ids, store.num_submaps),
-        accum=empty_buffer((C,), pose.device),
-        accum_count=torch.zeros_like(store.accum_count),
-        dropped=store.dropped + dropped,
+        accum=PointBuffer(**{f: _cleared(when, getattr(store.accum, f))
+                             for f in _FIELDS}),
+        accum_count=_cleared(when, store.accum_count),
+        dropped=_select(when, store.dropped + dropped, store.dropped),
         kf_points=kf_pts, kf_counts=kf_counts)

@@ -166,7 +166,7 @@ def _costmap_png(traver, start, cfg, args):
 def cmd_run(args):
     from gem_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
-                                                scan_steps, state_to_numpy)
+                                                state_to_numpy)
     from gem_tpu_torch.utils.observability import MetricsLogger, trace
 
     dev = _device(args)
@@ -196,8 +196,7 @@ def cmd_run(args):
             if scan:
                 batch.append(frame)
                 if len(batch) == scan:
-                    pipe.state, m = scan_steps(pipe.state, batch, cfg,
-                                               backend)
+                    m = pipe.scan_steps(batch)
                     n += scan
                     batch = []
                     if args.metrics_out:
@@ -418,8 +417,7 @@ def _fleet(args, dev, mode, group_world=1, group_rank=0):
     all robots (vmap), or this rank's share of them (mesh, distributed)."""
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.multirobot import distributed as mdist
-    from gem_tpu_torch.multirobot.fleet import (fleet_step, make_fleet_state,
-                                                stack_frames)
+    from gem_tpu_torch.multirobot.fleet import FleetPipeline, stack_frames
     from gem_tpu_torch.utils.tree import tree_map
 
     cfg = _build_config(args)
@@ -437,7 +435,7 @@ def _fleet(args, dev, mode, group_world=1, group_rank=0):
         seed=args.world_seed if shared else r,
         heading=0.35 + (0.25 * r if shared else 0.0), device="cpu")
         for r in robots]
-    state = make_fleet_state(cfg, len(robots), dev)
+    fleet = FleetPipeline(cfg, len(robots), dev, backend)
     mdist.barrier("fleet_first_step")
     t0 = time.time()
     n, outs = 0, None
@@ -451,11 +449,12 @@ def _fleet(args, dev, mode, group_world=1, group_rank=0):
                 f, math.radians(args.drift_yaw), (args.drift_x, args.drift_y))
                 for r, f in zip(robots, frame_list)]
         stacked = tree_map(lambda x: x.to(dev), stack_frames(frame_list))
-        state, outs = fleet_step(state, stacked, cfg, backend)
+        outs = fleet.process(stacked)
         n += 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
+    state = fleet.state
     pv = _numpy(outs.metrics["points_valid"]).tolist() if outs else []
     fused = _numpy((state.map.elevation != cfg.map.invalid_elevation)
                    .sum(dim=(-2, -1))).tolist()
@@ -549,14 +548,15 @@ def cmd_fleet(args):
 
 def cmd_selftest(args):
     """Deployment health check: replay a short synthetic sequence through
-    the production step (`stream`: K1 + K2 on a card) on --device, compare
-    the final elevation plane with the segment backend on the CPU, and
-    check the map is live.  Exit 0 = healthy (the reference package's
-    bounds: > 100 fused cells, validity agreement > 0.95, RMSE < 0.05 m)."""
+    the production pipeline (`ElevationPipeline`, `stream`: K1 + K2 in a
+    CUDA graph on a card) on --device, compare the final elevation plane
+    with the segment backend on the CPU, and check the map is live.  Exit
+    0 = healthy (the reference package's bounds: > 100 fused cells,
+    validity agreement > 0.95, RMSE < 0.05 m)."""
     from gem_tpu_torch import config as C
     from gem_tpu_torch.io.replay import synthetic_frames
-    from gem_tpu_torch.mapping.pipeline import (frame_from_numpy,
-                                                init_pipeline_state, step)
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                frame_from_numpy)
 
     dev = _device(args)
     cfg = C.PipelineConfig(
@@ -570,11 +570,10 @@ def cmd_selftest(args):
     planes = {}
     for name, where, backend in (("dev", dev, "stream"),
                                  ("cpu", torch.device("cpu"), "segment")):
-        s = init_pipeline_state(cfg, where)
+        pipe = ElevationPipeline(cfg, device=where, fuse_backend=backend)
         for fr in frames:
-            s, _ = step(s, frame_from_numpy(fr, where), cfg,
-                        fuse_backend=backend)
-        planes[name] = _numpy(s.map.elevation)
+            pipe.process(frame_from_numpy(fr, where))
+        planes[name] = _numpy(pipe.state.map.elevation)
     e_dev, e_cpu = planes["dev"], planes["cpu"]
     inv = cfg.map.invalid_elevation
     fused = int((e_dev != inv).sum())

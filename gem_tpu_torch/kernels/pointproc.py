@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.state import MapState, pack_rgb
 from gem_tpu_torch.sensors.models import height_variance
+from gem_tpu_torch.utils.device import constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +46,8 @@ def _affine(points, m, t=None):
 
 def project_to_image(points, projection):
     """Pinhole projection of sensor-frame points: (u, v, depth) floats."""
-    P = torch.as_tensor(projection, dtype=torch.float32,
-                        device=points.device).reshape(3, 4)
+    P = constant(tuple(float(x) for x in np.ravel(projection)),
+                 str(points.device)).reshape(3, 4)
     img_pt = _affine(points, P[:, :3], P[:, 3])
     z = img_pt[:, 2]
     zs = torch.where(z == 0, 1e-9, z)

@@ -24,6 +24,7 @@ import torch
 
 from gem_tpu_torch.core.index_math import roll_to_storage
 from gem_tpu_torch.core.state import MapState
+from gem_tpu_torch.utils.device import upload
 from gem_tpu_torch.utils.precision import f32_recip
 
 
@@ -125,22 +126,20 @@ def _device_tables(L: int, R: int, G: int, device: str):
     L*L entries, is a gather by each cell's slot.  Also the distances and
     1/max(d, 1e-6), the reciprocal XLA folds for the division by d."""
     d, key1, key2, cap, nslots = _tables(L, R, G)
-    to_slots = torch.from_numpy(np.argsort(key1, kind="stable")).to(device)
-    to_cells = torch.from_numpy(
-        np.argsort(key2, kind="stable")[:L * L]).to(device)
+    to_slots = upload(np.argsort(key1, kind="stable"), device)
+    to_cells = upload(np.argsort(key2, kind="stable")[:L * L], device)
     inv_d = f32_recip(np.maximum(d, np.float32(1e-6)))
-    return (torch.from_numpy(d).to(device), torch.from_numpy(inv_d).to(device),
-            to_slots, to_cells, cap, nslots)
+    return (upload(d, device), upload(inv_d, device), to_slots, to_cells,
+            cap, nslots)
 
 
 @functools.lru_cache(maxsize=16)
 def _device_near_tables(L: int, R: int, cap: float, device: str):
     R_n, S0, idx, inside, block, bray, bk, _ = _near_tables(L, R, cap)
-    sample = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(device)
-    cell = torch.from_numpy(
-        (bray.astype(np.int64) * S0 + bk).reshape(-1)).to(device)
-    return (R_n, S0, sample, torch.from_numpy(inside).to(device), block,
-            cell, bray.shape)
+    sample = upload(idx.reshape(-1).astype(np.int64), device)
+    cell = upload((bray.astype(np.int64) * S0 + bk).reshape(-1), device)
+    return (R_n, S0, sample, upload(inside, device), block, cell,
+            bray.shape)
 
 
 def _suffix_min_beyond(x):

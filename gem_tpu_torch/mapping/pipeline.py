@@ -16,19 +16,25 @@ wrapper picks by device: its plain PyTorch version on CPU tensors, the CUDA
 kernel on CUDA tensors.  There is no calibration-driven "auto": the fuse
 backend is named.
 
-Known sync cost: JAX branches on device scalars with `lax.cond` (jump vs
-move, the raytrace cadence, keyframe finalize, the staging flush).  Here the
-four predicates are read to the host ONCE per frame, in one `.tolist()`,
-and the taken branch runs in Python.  Everything else stays on the device;
-the storage<->geographic rolls are gathers by device indices, so `start` is
-never read.  Capturing the step in a CUDA graph with masked selects is
-later work (ROADMAP).
+No host read: every branch of JAX's `step` that `lax.cond` takes on a
+device scalar (jump vs move, the raytrace cadence, the staging flush, the
+keyframe finalize) is a select here.  Both sides run and `torch.where`
+keeps the taken one, leaf by leaf; the submap rings, which are updated in
+place, write the old row back where the branch is not taken
+(global_map/submaps.py).  JAX says the same of its conds under `vmap`:
+they batch back to a select.  So `step` reads nothing to the host, makes
+no upload per frame, and captures into a CUDA graph.
+
+`ElevationPipeline` (`process`, `scan_steps`) and the fleet replay the
+step as CUDA graphs on the card (utils/graph.py, the counterpart of
+`jax.jit`) and call it directly on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Optional
+import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,7 +52,8 @@ from gem_tpu_torch.motion.updater import (MotionState, apply_process_noise,
 from gem_tpu_torch.render.products import orthomosaic
 from gem_tpu_torch.sensors.models import jacobian_ingredients
 from gem_tpu_torch.utils.device import resolve_device
-from gem_tpu_torch.utils.tree import tree_map
+from gem_tpu_torch.utils.graph import DeviceProgram
+from gem_tpu_torch.utils.tree import tree_map, tree_select
 
 FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
 
@@ -151,29 +158,14 @@ def step(state: PipelineState, frame: Frame, cfg,
     jump_odom = jump_odom & ~finish
     use_jump = jump_odom
 
-    # --- the frame's host sync: every branch predicate in one read --------
-    if cfg.enable_submaps:
-        dist = torch.linalg.vector_norm(track[:2] - state.last_keyframe_xy)
-        keyframe_due = dist >= cfg.submap.keyframe_distance
-    else:
-        keyframe_due = torch.zeros((), dtype=torch.bool, device=dev)
-    raytrace_due = torch.remainder(state.frame_idx,
-                                   max(cfg.raytrace_every, 1)) == 0
-    jump_h, keyframe_h, raytrace_h, staged_h = torch.stack([
-        use_jump.to(torch.int32), keyframe_due.to(torch.int32),
-        raytrace_due.to(torch.int32),
-        state.submaps.staging_used.to(torch.int32)]).tolist()
-
-    # --- window relocation ------------------------------------------------
-    if jump_h:
-        map_state = re_anchor(state.map, cfg.map, track,
-                              track[2] - state.last_track_z)
-        map_state = map_state.replace(sensor_z=track[2].clone())
-        shed = empty_shed(cfg, dev)
-        index_shift = torch.zeros((2,), dtype=torch.int32, device=dev)
-    else:
-        map_state, info = move(state.map, cfg.map, track)
-        shed, index_shift = info.shed, info.index_shift
+    # --- window relocation: both branches, the taken one selected --------
+    anchored = re_anchor(state.map, cfg.map, track,
+                         track[2] - state.last_track_z)
+    anchored = anchored.replace(sensor_z=track[2].clone())
+    moved, info = move(state.map, cfg.map, track)
+    map_state = tree_select(use_jump, anchored, moved)
+    shed = tree_select(use_jump, empty_shed(cfg, dev), info.shed)
+    index_shift = torch.where(use_jump, 0, info.index_shift)
 
     # --- point processing ---------------------------------------------------
     sensor_jac, c_sb_t, p_bm_t, b_skew = jacobian_ingredients(
@@ -224,15 +216,21 @@ def step(state: PipelineState, frame: Frame, cfg,
     shed = dataclasses.replace(shed, valid=shed.valid & ~suppress)
     submaps = state.submaps
     if cfg.enable_submaps:
-        submaps = sm.append_shed(submaps, shed, staged=staged_h)
+        submaps = sm.append_shed(submaps, shed)
 
     # --- raytrace visibility cleanup ---------------------------------------
-    if cfg.enable_raytrace and raytrace_h:
-        map_state = raytrace_cleanup(map_state, cfg.map, feats.traver)
+    if cfg.enable_raytrace:
+        cleaned = raytrace_cleanup(map_state, cfg.map, feats.traver)
+        if cfg.raytrace_every > 1:
+            due = torch.remainder(state.frame_idx, cfg.raytrace_every) == 0
+            cleaned = tree_select(due, cleaned, map_state)
+        map_state = cleaned
 
     # --- keyframe finalize (src/ElevationMapping.cpp:624-627) ---------------
     last_keyframe_xy = state.last_keyframe_xy
-    if cfg.enable_submaps and keyframe_h:
+    if cfg.enable_submaps:
+        dist = torch.linalg.vector_norm(track[:2] - state.last_keyframe_xy)
+        keyframe_due = dist >= cfg.submap.keyframe_distance
         grid_pts = sm.grid_to_points(map_state, cfg, feats.traver)
         pose = torch.cat([track, frame.pose_quat.to(torch.float32)])
         # SubMap payload (src/ElevationMapping.cpp:666-681): orthomosaic
@@ -244,8 +242,12 @@ def step(state: PipelineState, frame: Frame, cfg,
             kf_pts, kf_count = _keyframe_scan(
                 frame, cfg.submap.keyframe_scan_points)
         submaps = sm.finalize_submap(submaps, grid_pts, pose, ortho=ortho,
-                                     kf_points=kf_pts, kf_count=kf_count)
-        last_keyframe_xy = track[:2].clone()
+                                     kf_points=kf_pts, kf_count=kf_count,
+                                     when=keyframe_due)
+        last_keyframe_xy = torch.where(keyframe_due, track[:2],
+                                       last_keyframe_xy)
+    else:
+        keyframe_due = torch.zeros((), dtype=torch.bool, device=dev)
 
     new_state = PipelineState(
         map=map_state, motion=motion, submaps=submaps,
@@ -264,10 +266,24 @@ def step(state: PipelineState, frame: Frame, cfg,
                                   keyframe_due=keyframe_due, metrics=metrics)
 
 
-def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg,
+def stack_frames(frames) -> Frame:
+    """One Frame with a leading axis from a list of Frames (robots of a
+    fleet, or the frames of a scan); an optional field (image,
+    loop_closure) is None in all of them or in none."""
+    return tree_map(lambda *xs: torch.stack(xs), frames[0], *frames[1:])
+
+
+def scan_steps(state: PipelineState, frames, cfg,
                fuse_backend: str = "stream"):
-    """Run a frame sequence; returns (final_state, dict of (T,) per-frame
-    metric tensors: points_valid, cells_fused, shed_count, keyframe)."""
+    """Run a frame sequence: `frames` is a Frame with a leading time axis on
+    every leaf (JAX's layout) or a sequence of Frames.  Returns
+    (final_state, dict of (T,) per-frame metric tensors: points_valid,
+    cells_fused, shed_count, keyframe).  `ElevationPipeline.scan_steps`
+    replays it as one CUDA graph of T steps, the counterpart of
+    `jax.jit(lax.scan)`."""
+    if isinstance(frames, Frame):
+        frames = [tree_map(lambda x: x[t], frames)
+                  for t in range(frames.points.shape[0])]
     rows = []
     for frame in frames:
         state, out = step(state, frame, cfg, fuse_backend)
@@ -280,7 +296,15 @@ def scan_steps(state: PipelineState, frames: Iterable[Frame], cfg,
 
 class ElevationPipeline:
     """Frames in, state + features out, on one device (the card unless
-    `device="cpu"`)."""
+    `device="cpu"`).
+
+    On the card `process` and `scan_steps` replay CUDA graphs of `step`
+    (utils/graph.py `DeviceProgram`, the counterpart of the JAX package's
+    `jax.jit`): nothing in them reads the device, so the host runs ahead
+    of the card.  On the CPU they call `step` directly.  `state` is the
+    live state at the graphs' fixed addresses, overwritten by the next
+    call; assigning it copies the new state in (a checkpoint, a
+    re-stitched submap store)."""
 
     def __init__(self, cfg, device="cuda", fuse_backend: str = "stream"):
         from gem_tpu_torch.config import validate_config
@@ -290,14 +314,32 @@ class ElevationPipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fuse_backend = fuse_backend
-        self.state = init_pipeline_state(cfg, self.device)
+        self._program = DeviceProgram(init_pipeline_state(cfg, self.device))
+        self._step = functools.partial(step, cfg=cfg,
+                                       fuse_backend=fuse_backend)
+        self._scan = functools.partial(scan_steps, cfg=cfg,
+                                       fuse_backend=fuse_backend)
         self.last_outputs: Optional[StepOutputs] = None
 
+    @property
+    def state(self) -> PipelineState:
+        return self._program.state
+
+    @state.setter
+    def state(self, state: PipelineState) -> None:
+        self._program.state = state
+
     def process(self, frame: Frame) -> StepOutputs:
-        self.state, out = step(self.state, frame, self.cfg,
-                               self.fuse_backend)
+        out = self._program(self._step, frame)
         self.last_outputs = out
         return out
+
+    def scan_steps(self, frames) -> dict:
+        """`scan_steps` over a stacked Frame or a list of Frames, as one
+        graph of T steps on the card; returns the (T,) metric tensors."""
+        if not isinstance(frames, Frame):
+            frames = stack_frames(list(frames))
+        return self._program(self._scan, frames)
 
 
 # ---------------------------------------------------------------------------

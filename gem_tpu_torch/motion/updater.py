@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from gem_tpu_torch.utils.device import constant
+
 
 @dataclasses.dataclass(frozen=True)
 class MotionState:
@@ -80,12 +82,13 @@ def relative_covariance(position, quat, reduced, prev: MotionState):
     R_prev = quat_to_rotmat(prev.prev_quat)
     v_dt = R_prev.T @ (position.to(torch.float32) - prev.prev_position)
 
-    ez_skew = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0],
-                            [0.0, 0.0, 0.0]], device=dev)
+    ez_skew = constant(((0.0, -1.0, 0.0), (1.0, 0.0, 0.0),
+                        (0.0, 0.0, 0.0)), str(dev))
     F = torch.eye(4, dtype=torch.float32, device=dev)
     F[:3, 3] = ez_skew @ R_tilde @ v_dt
-    invG = torch.zeros((4, 4), dtype=torch.float32, device=dev)
-    invG[3, 3] = 1.0
+    # eye, not zeros and a scalar store: a Python scalar written into a CUDA
+    # tensor is an upload from the host, which no CUDA graph can hold
+    invG = torch.eye(4, dtype=torch.float32, device=dev)
     invGT = invG.clone()
     invG[:3, :3] = R_tilde.T
     invGT[:3, :3] = R_tilde

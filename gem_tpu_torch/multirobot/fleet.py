@@ -5,15 +5,17 @@ single-robot `PipelineState` with a leading robot axis on every leaf, the
 same tree as the JAX package's, so `state_from_numpy` / `state_to_numpy`
 carry a JAX fleet state across unchanged.
 
-JAX's `fleet_step` is `jax.vmap` of `step`.  The port's `step` reads its
-branch predicates to the host once per frame, and those branches differ
-robot by robot, so it cannot be vmapped: `fleet_step` runs each robot's
-`step` on views of the stacked state.  On the card that is K1 and K2
-(stream) or 5 x K3 and K2 (pallas) once per robot and frame.
+JAX's `fleet_step` is `jax.vmap` of `step`, and `FleetPipeline` replays
+it as `jax.jit(fleet_step)`.  Here `fleet_step` runs each robot's `step`
+on views of the stacked state, so on the card that is K1 and K2 (stream)
+or 5 x K3 and K2 (pallas) once per robot and frame; the kernels take no
+robot axis yet.  `step` reads nothing to the host, so `FleetPipeline`
+captures the whole fleet frame, every robot's step and its write-back,
+as one CUDA graph (utils/graph.py).
 
 `step` consumes its state: the submap rings update in place, which writes
 through the views into the stack; every leaf that `step` replaces instead
-is copied back into the stack.
+is copied back into the stack (`write_back`).
 
 JAX's mesh functions (`make_mesh`, `shard_fleet`, `sharded_fleet_step`) have
 their counterparts in multirobot/distributed.py: one process per card,
@@ -23,13 +25,17 @@ each running `fleet_step` on its own robots with no collective.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from gem_tpu_torch.mapping.pipeline import (PipelineState,
-                                            init_pipeline_state, step)
+                                            init_pipeline_state,
+                                            stack_frames,  # noqa: F401
+                                            step)
 from gem_tpu_torch.utils.device import resolve_device
-from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+from gem_tpu_torch.utils.graph import DeviceProgram, write_back
+from gem_tpu_torch.utils.tree import tree_map
 
 
 def fleet_effective_config(cfg):
@@ -52,23 +58,6 @@ def make_fleet_state(cfg, n_robots: int, device="cuda") -> PipelineState:
         (n_robots,) + (1,) * x.dim()), one)
 
 
-def stack_frames(frames):
-    """One Frame with a leading robot axis from a list of Frames; an
-    optional field (image, loop_closure) is None in all of them or in
-    none."""
-    return tree_map(lambda *xs: torch.stack(xs), frames[0], *frames[1:])
-
-
-def _write_back(views, new):
-    """Copy every leaf of `new` that is not already the view it replaces
-    into that view."""
-    got = tree_leaves(new)
-    for key, dst in tree_leaves(views).items():
-        src = got[key]
-        if src.data_ptr() != dst.data_ptr():   # replaced, not updated in place
-            dst.copy_(src)
-
-
 def fleet_step(state: PipelineState, frames, cfg,
                fuse_backend: str = "stream"):
     """One frame for every robot: `state` and `frames` carry a leading robot
@@ -80,6 +69,35 @@ def fleet_step(state: PipelineState, frames, cfg,
         views = tree_map(lambda x: x[r], state)
         new, out = step(views, tree_map(lambda x: x[r], frames), cfg,
                         fuse_backend)
-        _write_back(views, new)
+        write_back(views, new)
         outs.append(out)
     return state, tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
+
+
+class FleetPipeline:
+    """A fleet's stacked state and its step, as `ElevationPipeline` is for
+    one robot: on the card `process` replays `fleet_step` as one CUDA
+    graph per fleet frame (the counterpart of `jax.jit(fleet_step)`), on
+    the CPU it calls it.  `state` is the live stacked state, overwritten
+    by the next call; assigning it copies a state in."""
+
+    def __init__(self, cfg, n_robots: int, device="cuda",
+                 fuse_backend: str = "stream"):
+        self.cfg = cfg
+        self._program = DeviceProgram(make_fleet_state(cfg, n_robots,
+                                                       device))
+        self._step = functools.partial(fleet_step, cfg=cfg,
+                                       fuse_backend=fuse_backend)
+
+    @property
+    def state(self) -> PipelineState:
+        return self._program.state
+
+    @state.setter
+    def state(self, state: PipelineState) -> None:
+        self._program.state = state
+
+    def process(self, frames):
+        """One frame for every robot (`frames` stacked on a leading robot
+        axis); returns the robots' StepOutputs, stacked."""
+        return self._program(self._step, frames)

@@ -1,0 +1,152 @@
+"""The counterpart of `jax.jit` for the package's fixed-shape state
+transforms, `fn(state, inputs) -> (state, outputs)`: CUDA graphs.
+
+`DeviceProgram` holds a state at fixed addresses (its buffers) and runs
+such functions over it.  On the card each (function, input structure)
+pair is captured once into a `torch.cuda.CUDAGraph` and replayed after:
+
+  * the inputs are copied into static input buffers before each replay; a
+    frame with or without an optional leaf (`loop_closure`, `image`) is
+    another structure and another graph, as in a JAX retrace;
+  * inside the captured region, every state leaf that the function
+    replaces instead of updating in place is copied back into its buffer
+    (`write_back`), so the state stays at its addresses across replays;
+  * the outputs are copied out of the graph's own tensors after a replay,
+    on the device and without a sync, so an output that the caller keeps
+    across a later call keeps its values, as a fresh JAX array does.
+
+The first call of each pair runs the function eagerly on the state, and
+that run is the call's own result; then the pair is captured.  The eager
+run is the warm-up a capture needs: it builds the kernel library, fills the
+cached device tables and initialises the libraries, none of which may
+happen while a stream is captured.  So each frame launches each kernel
+once on the device, the first one included.  A capture that fails raises,
+after the eager run has advanced the state; no graph is kept, so the next
+call tries again.  There is no eager fallback.  All graphs of one program
+share one memory pool, and they are replayed one at a time.
+
+On CPU tensors the function is called directly, as JAX on the CPU runs the
+same function.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+def _storage(t) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def write_back(dst, src) -> None:
+    """Copy every leaf of `src` into the leaf of `dst` at the same place,
+    unless it already is that tensor (updated in place).  A leaf of `src`
+    that shares memory with a leaf about to be written is copied out first,
+    so no copy reads what another one overwrote."""
+    got = tree_leaves(src)
+    moves = []
+    for key, d in tree_leaves(dst).items():
+        s = got[key]
+        if s.shape != d.shape or s.dtype != d.dtype:
+            raise ValueError(f"write_back: {key} is {s.dtype} "
+                             f"{tuple(s.shape)}, its buffer {d.dtype} "
+                             f"{tuple(d.shape)}")
+        if s.data_ptr() != d.data_ptr():
+            moves.append((d, s))
+    written = {_storage(d) for d, _ in moves}
+    moves = [(d, s.clone() if _storage(s) in written else s)
+             for d, s in moves]
+    for d, s in moves:
+        d.copy_(s)
+
+
+def _signature(leaves: dict) -> tuple:
+    return tuple((k, tuple(t.shape), t.dtype, t.device)
+                 for k, t in leaves.items())
+
+
+def _fresh(t):
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class DeviceProgram:
+    """A state at fixed addresses and the CUDA graphs that advance it.
+
+    `program(fn, inputs)` runs `fn(program.state, inputs)`, keeps the new
+    state and returns the outputs.  `program.state` is the live state: the
+    next call overwrites it in place, so copy it (`state_to_numpy`) to keep
+    a snapshot.  Assigning a state copies it into the buffers when its
+    leaves have the buffers' shapes and types, and otherwise takes a copy
+    of it as new buffers and drops every graph, to be captured again."""
+
+    def __init__(self, state):
+        self._buffers = None
+        self._graphs = {}
+        self._pool = None
+        self.state = state
+
+    @property
+    def state(self):
+        return self._buffers
+
+    @state.setter
+    def state(self, state) -> None:
+        leaves = tree_leaves(state)
+        self.device = next(iter(leaves.values())).device
+        if self.device.type != "cuda":
+            self._buffers = state
+            self._graphs.clear()
+        elif self._buffers is not None and _signature(leaves) \
+                == _signature(tree_leaves(self._buffers)):
+            write_back(self._buffers, state)
+        else:
+            self._graphs.clear()
+            self._buffers = tree_map(_fresh, state)
+
+    def __call__(self, fn, inputs):
+        if self.device.type != "cuda":
+            self._buffers, out = fn(self._buffers, inputs)
+            return out
+        leaves = tree_leaves(inputs)
+        key = (fn, _signature(leaves))
+        entry = self._graphs.get(key)
+        if entry is None:
+            for name, t in leaves.items():
+                if t.device != self.device:
+                    raise ValueError(f"DeviceProgram: input {name} is on "
+                                     f"{t.device}, the state on "
+                                     f"{self.device}")
+            return self._run_and_capture(fn, inputs, key)
+        graph, static_in, static_out = entry
+        for dst, src in zip(static_in, leaves.values()):
+            dst.copy_(src)
+        graph.replay()
+        return tree_map(torch.clone, static_out)
+
+    def _run_and_capture(self, fn, inputs, key):
+        static_in = tree_map(_fresh, inputs)
+        new_state, out = fn(self._buffers, static_in)
+        out = tree_map(torch.clone, out)
+        write_back(self._buffers, new_state)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        buffers = {_storage(t) for t in tree_leaves(self._buffers).values()}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                new_state, static_out = fn(self._buffers, static_in)
+                # an output that is a state buffer would be read after the
+                # write-back below: copy it out first
+                static_out = tree_map(
+                    lambda t: t.clone() if _storage(t) in buffers else t,
+                    static_out)
+                write_back(self._buffers, new_state)
+        except RuntimeError as e:
+            name = getattr(fn, "func", fn).__name__
+            raise RuntimeError(f"DeviceProgram: CUDA graph capture of "
+                               f"{name} failed: {e}") from e
+        self._graphs[key] = (graph, list(tree_leaves(static_in).values()),
+                             static_out)
+        return out

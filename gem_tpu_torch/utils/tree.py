@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 def tree_map(fn, tree, *rest):
     """fn(leaf, *leaves of `rest` at the same place) over `tree`."""
@@ -35,3 +37,11 @@ def tree_leaves(tree, prefix: str = "") -> dict:
             out.update(tree_leaves(v, f"{prefix}{k}/"))
         return out
     return {} if tree is None else {prefix[:-1]: tree}
+
+
+def tree_select(pred, a, b):
+    """`torch.where(pred, a, b)` leaf by leaf over two trees of one
+    structure: the select that stands for `lax.cond` on a device scalar.
+    A leaf that is the same tensor in both trees is kept, not copied."""
+    return tree_map(lambda x, y: x if x is y else torch.where(pred, x, y),
+                    a, b)

@@ -94,6 +94,39 @@ def test_import_leaves_jax_out_and_tf32_off():
     assert out.stdout.strip() == "ok"
 
 
+def test_package_exports_the_names_gem_tpu_exports():
+    """Every name `import gem_tpu` exports (its config classes and presets,
+    MapState, init_map_state, and lazily ElevationPipeline, Frame,
+    PipelineState and step) resolves in the port to the port's own
+    object of that name; `import gem_tpu_torch` stays light."""
+    import inspect
+
+    import gem_tpu
+    import gem_tpu_torch
+
+    names = [n for n, v in vars(gem_tpu).items()
+             if not n.startswith("_") and not inspect.ismodule(v)]
+    names += ["ElevationPipeline", "Frame", "PipelineState", "step"]
+    assert {"MapConfig", "benchmark_config", "init_map_state"} <= set(names)
+    for name in names:
+        want, got = getattr(gem_tpu, name), getattr(gem_tpu_torch, name)
+        assert got.__name__ == want.__name__, name
+        assert got.__module__.replace("gem_tpu_torch", "gem_tpu") \
+            == want.__module__, name
+    from gem_tpu_torch import (ElevationPipeline, MapConfig,  # noqa: F401
+                               benchmark_config, step)
+    with pytest.raises(AttributeError):
+        gem_tpu_torch.not_a_name
+    code = ("import sys, gem_tpu_torch;"
+            " assert 'gem_tpu_torch.mapping.pipeline' not in sys.modules;"
+            " assert gem_tpu_torch.step.__module__"
+            " == 'gem_tpu_torch.mapping.pipeline'; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_config_is_the_shared_source():
     """The port's own copy of the config module (it reads nothing under
     gem_tpu/) holds the JAX package's configuration tree."""

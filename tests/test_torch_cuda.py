@@ -351,17 +351,30 @@ def test_fuse_backends_on_card_match_cpu(cuda, backend):
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
 
+    from torch.profiler import ProfilerActivity, profile
+
     cfg = benchmark_config(length=64, max_points=4096)
     gpu = ElevationPipeline(cfg, device=cuda, fuse_backend=backend)
     cpu = ElevationPipeline(cfg, device="cpu", fuse_backend=backend)
     before = sst.segment_stats_sorted.launches
-    for f, _, _ in synthetic_frames(cfg, 5, n_points=4000, speed=0.4,
-                                    seed=2, max_range=3.0, device="cpu"):
-        cpu.process(f)
-        gpu.process(type(f)(**{k: None if v is None else v.to(cuda)
-                               for k, v in vars(f).items()}))
-    launches = sst.segment_stats_sorted.launches - before
+    frames = [f for f, _, _ in synthetic_frames(
+        cfg, 5, n_points=4000, speed=0.4, seed=2, max_range=3.0,
+        device="cpu")]
+    on_card = [type(f)(**{k: None if v is None else v.to(cuda)
+                          for k, v in vars(f).items()}) for f in frames]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for f, g in zip(frames, on_card):
+            cpu.process(f)
+            gpu.process(g)
+        torch.cuda.synchronize()
+    # K3 runs 5 times a frame on the device; the pipeline's graph calls
+    # the wrapper only on its eager first frame and in the capture
+    launches = sum("segment_stats_kernel" in e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
     assert launches == (25 if backend == "pallas" else 0)
+    assert sst.segment_stats_sorted.launches - before \
+        == (10 if backend == "pallas" else 0)
     a, b = gpu.state.map, cpu.state.map
     for key in ("elevation", "variance"):
         torch.testing.assert_close(getattr(a, key).cpu(), getattr(b, key),
@@ -619,3 +632,180 @@ def test_four_cards_nccl_ring(cuda, tmp_path):
         fused.append(out.stdout.split("per-robot fused cells: ")[1]
                      .splitlines()[0])
     assert fused[0] == fused[1]
+
+
+# --- the step as a CUDA graph (utils/graph.py) ----------------------------
+
+
+def _graph_cfg(L=64):
+    cfg = benchmark_config(length=L, max_points=4096)
+    return cfg.replace(submap=dataclasses.replace(
+        cfg.submap, keyframe_distance=1.0, staging_frames=3, capacity=2048,
+        max_submaps=3))
+
+
+def _graph_frames(cfg, device, n=8, seed=1):
+    """n frames at 0.35 m per frame (a keyframe every third); frame 3
+    closes a loop (pose +0.5 m, z +0.3 m) and the jump then settles and
+    finishes, as tests/test_torch_pipeline.py drives the JAX parity."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+
+    fr = [f for f, _, _ in synthetic_frames(cfg, n, n_points=3000,
+                                            speed=0.35, seed=seed,
+                                            max_range=3.0, device=device)]
+    shift = torch.tensor([0.5, 0.0, 0.3], device=device)
+    for i in range(3, n):
+        bump = torch.tensor([0.0, 0.0, 0.05 if i >= 7 else 0.0],
+                            device=device)
+        fr[i] = dataclasses.replace(fr[i],
+                                    track_position=fr[i].track_position
+                                    + shift + bump)
+    fr[3] = dataclasses.replace(fr[3], loop_closure=torch.ones(
+        (), dtype=torch.bool, device=device))
+    return fr
+
+
+def _without_loop_flag(frames, n):
+    """The first n frames without a `loop_closure` leaf: another input
+    structure than the frames that carry one."""
+    return [dataclasses.replace(f, loop_closure=None) if i < n else f
+            for i, f in enumerate(frames)]
+
+
+def _leaves_equal(a, b):
+    from gem_tpu_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(a), tree_leaves(b)
+    assert a.keys() == b.keys()
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+@pytest.mark.parametrize("backend", ["stream", "pallas"])
+def test_graph_capture_equals_eager_bitwise(cuda, backend):
+    """ElevationPipeline replays CUDA graphs of `step`, one per input
+    structure: frames 0-2 carry no `loop_closure` leaf, frame 3 (the loop
+    closure) and the rest do, so frames 0 and 3 capture.  After every
+    frame each state leaf and each output equals the eager `step` loop
+    bitwise, and the replays launch through the graph, not the
+    wrappers."""
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+
+    cfg = _graph_cfg()
+    frames = _without_loop_flag(_graph_frames(cfg, cuda), 3)
+    pipe = ElevationPipeline(cfg, device=cuda, fuse_backend=backend)
+    state = init_pipeline_state(cfg, cuda)
+    wrapper = (ft.plane_fit_features if backend == "pallas"
+               else fs.fuse_stream_aggregate)
+    saw_jump = saw_keyframe = 0
+    for i, f in enumerate(frames):
+        calls = wrapper.launches
+        out = pipe.process(f)
+        # frames 0 and 3 (a new structure) run eagerly and capture: two
+        # wrapper calls; every other frame is a replay, which calls none
+        assert wrapper.launches - calls == (2 if i in (0, 3) else 0), i
+        state, ref = step(state, f, cfg, fuse_backend=backend)
+        assert not _leaves_equal(pipe.state, state), (i, _leaves_equal(
+            pipe.state, state))
+        assert not _leaves_equal(out, ref), (i, _leaves_equal(out, ref))
+        saw_jump += bool(state.jump_odom)
+        saw_keyframe += bool(ref.keyframe_due)
+    assert saw_jump and saw_keyframe and int(state.submaps.num_submaps) >= 2
+
+
+def test_graph_scan_and_fleet_equal_eager_bitwise(cuda):
+    """`ElevationPipeline.scan_steps` (one graph of T steps) against T eager
+    steps, and `FleetPipeline` (one graph per fleet frame) against eager
+    `fleet_step`: every leaf bitwise."""
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+    from gem_tpu_torch.multirobot.fleet import (FleetPipeline, fleet_step,
+                                                make_fleet_state,
+                                                stack_frames)
+
+    cfg = _graph_cfg()
+    frames = _graph_frames(cfg, cuda)[:3]
+    pipe = ElevationPipeline(cfg, device=cuda)
+    m = pipe.scan_steps(frames)
+    state = init_pipeline_state(cfg, cuda)
+    for f in frames:
+        state, out = step(state, f, cfg)
+    assert not _leaves_equal(pipe.state, state)
+    assert int(m["cells_fused"][-1]) == int(out.metrics["cells_fused"]) > 0
+    streams = [_graph_frames(cfg, cuda, n=5, seed=10 + r) for r in range(3)]
+    fleet = FleetPipeline(cfg, 3, device=cuda)
+    ref = make_fleet_state(cfg, 3, device=cuda)
+    for t in range(4):       # frames 0-3: the loop closes in frame 3
+        frames = stack_frames([s[t] for s in streams])
+        outs = fleet.process(frames)
+        ref, ref_outs = fleet_step(ref, frames, cfg)
+        assert not _leaves_equal(fleet.state, ref), t
+        assert not _leaves_equal(outs, ref_outs), t
+
+
+def test_graph_outputs_kept_across_process_keep_their_values(cuda):
+    """An output kept across the next `process` keeps its values: the
+    pipeline copies its outputs out of the graph's tensors."""
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.utils.tree import tree_map
+
+    cfg = _graph_cfg()
+    frames = _graph_frames(cfg, cuda)
+    pipe = ElevationPipeline(cfg, device=cuda)
+    first = pipe.process(frames[0])
+    kept = tree_map(torch.clone, first)
+    second = pipe.process(frames[1])
+    pipe.process(frames[2])
+    assert not _leaves_equal(first, kept)
+    assert not torch.equal(first.features.traver, second.features.traver)
+
+
+def test_process_is_free_of_syncs(cuda):
+    """`process`, `scan_steps` and the fleet's `process` under
+    `torch.cuda.set_sync_debug_mode("error")`, first calls included (the
+    warm-up that builds the cached device tables, and the capture): no
+    host read and no blocking upload.  L=72, which no other test uses, so
+    the raytrace tables are built under the probe."""
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.multirobot.fleet import FleetPipeline, stack_frames
+
+    cfg = _graph_cfg(L=72)
+    frames = _graph_frames(cfg, cuda)
+    fleet_frames = [stack_frames([f, f]) for f in frames[:2]]
+    pipes = [ElevationPipeline(cfg, device=cuda, fuse_backend=b)
+             for b in ("stream", "pallas")]
+    fleet = FleetPipeline(cfg, 2, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pipe in pipes:
+            for f in frames:
+                pipe.process(f)
+            pipe.scan_steps(frames[:3])
+        for f in fleet_frames:
+            fleet.process(f)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    assert int(pipes[0].state.frame_idx) == len(frames) + 3
+
+
+def test_failed_capture_raises(cuda):
+    """A function that reads the device to the host cannot be captured:
+    the call raises (after its eager first run, which advanced the state),
+    keeps no graph, and so the next call raises again; nothing falls back
+    to running eagerly."""
+    from gem_tpu_torch.utils.graph import DeviceProgram
+
+    prog = DeviceProgram({"x": torch.zeros(3, device=cuda)})
+
+    def host_read(state, inputs):
+        n = int(inputs["y"].sum())
+        return {"x": state["x"] + n}, {}
+
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            prog(host_read, {"y": torch.ones(2, device=cuda)})
+    torch.cuda.synchronize()
+    assert prog.state["x"].tolist() == [4.0, 4.0, 4.0]

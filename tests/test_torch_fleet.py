@@ -257,3 +257,24 @@ def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
         fn()
     if name != "load_checkpoint_sharded":      # nothing saved there
         fn(device="cpu")
+
+
+def test_fleet_pipeline_equals_fleet_step():
+    """`FleetPipeline` (the fleet's program: a CUDA graph on the card, the
+    function itself on the CPU) against `fleet_step`, every leaf bitwise,
+    and its state assigned from a fleet state continues alike."""
+    cfg = _cfg(tconfig)
+    n, T = 3, 5
+    streams = _streams(cfg, n, T)
+    pipe = tfleet.FleetPipeline(cfg, n, device="cpu", fuse_backend="segment")
+    ref = tfleet.make_fleet_state(cfg, n, device="cpu")
+    for t in range(T):
+        frames = _port_frames([streams[r][t] for r in range(n)])
+        outs = pipe.process(frames)
+        ref, ref_outs = tfleet.fleet_step(ref, frames, cfg,
+                                          fuse_backend="segment")
+        for got, want in ((pipe.state, ref), (outs, ref_outs)):
+            a, b = tree_leaves(got), tree_leaves(want)
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in a), t
+    assert int(ref.submaps.num_submaps.min()) >= 1

@@ -30,24 +30,25 @@ from gem_tpu.mapping.pipeline import step as jstep
 from gem_tpu_torch.mapping import pipeline as tp
 
 
-def _frames(cfg, n, seed):
-    """n synthetic frames; frame 3 closes a loop (pose jumps 0.5 m, z
-    +0.3 m), frames 4-5 hold the jumped z (the jump settles), frame 6 is
-    all padding, frame 7 bumps z (the jump finishes)."""
+def _frames(cfg, n, seed, jump_at=3):
+    """n synthetic frames; frame `jump_at` (3) closes a loop (pose jumps
+    0.5 m, z +0.3 m), the next three hold the jumped z (the jump settles;
+    with jump_at=3, frame 6 is all padding), the frame after bumps z (the
+    jump finishes)."""
     fr = [f for f, _, _ in synthetic_frames(cfg, n, n_points=3000,
                                             speed=0.35, seed=seed,
                                             max_range=2.4)]
     jz = None
-    for i in range(3, n):
+    for i in range(jump_at, n):
         tr = np.asarray(fr[i].track_position).copy()
-        if i == 3:
+        if i == jump_at:
             tr += np.array([0.5, 0.0, 0.3], np.float32)
             jz = tr[2]
             fr[i] = dataclasses.replace(fr[i], track_position=tr,
                                         loop_closure=np.ones((), bool))
             continue
         tr[0] += 0.5
-        tr[2] = jz if i < 7 else jz + 0.05
+        tr[2] = jz if i < jump_at + 4 else jz + 0.05
         fr[i] = dataclasses.replace(fr[i], track_position=tr)
     fr[6] = dataclasses.replace(fr[6], valid=np.zeros_like(fr[6].valid))
     return fr
@@ -73,9 +74,11 @@ def _compare(js, ts, i, atol_planes=1e-5):
                                       err_msg=f"{i} {k}")
 
 
-def _drive_both(cfg, frames, backend="stream", atol_planes=1e-5):
+def _drive_both(cfg, frames, backend="stream", atol_planes=1e-5,
+                events=None):
     """Step both packages over `frames`, comparing after every frame;
-    returns the port's last state and what the drive went through."""
+    returns the port's last state.  `events`, a list, gets per frame
+    (jump, keyframe due, staging ring filled) as the port saw them."""
     jf = jax.jit(functools.partial(
         jstep, cfg=cfg,
         fuse_backend=backend + "_interpret" if backend in (
@@ -83,11 +86,15 @@ def _drive_both(cfg, frames, backend="stream", atol_planes=1e-5):
         feature_backend="pallas_interpret"))
     js, ts = jinit(cfg), tp.init_pipeline_state(cfg, "cpu")
     saw = {"jump": False, "shed": 0, "keyframe": 0}
+    S = cfg.submap.staging_frames
     for i, f in enumerate(frames):
+        full = S > 0 and int(ts.submaps.staging_used) == S - 1
         js, jo = jf(js, f)
         ts, to = tp.step(ts, tp.frame_from_numpy(f, "cpu"), cfg,
                          fuse_backend=backend)
         _compare(js, ts, i, atol_planes)
+        if events is not None:
+            events.append((bool(ts.jump_odom), bool(to.keyframe_due), full))
         for k in ("points_valid", "cells_fused", "shed_count",
                   "index_shift"):
             np.testing.assert_array_equal(to.metrics[k].numpy(),
@@ -128,6 +135,35 @@ def test_step_matches_jax_fuse_backends(backend):
     cfg = _cfg()
     _drive_both(cfg, _frames(cfg, 8, seed=4), backend,
                 atol_planes=1e-4 if backend == "sort" else 1e-5)
+
+
+_BRANCH_CASES = {
+    # raytrace_every, staging frames, frame count, jump_at
+    "jump_on_keyframe": (1, 3, 8, 3),
+    "staging_full_on_keyframe": (1, 4, 10, 5),
+    "raytrace_every_3": (3, 3, 8, 3),
+}
+
+
+@pytest.mark.parametrize("backend", ["stream", "pallas"])
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_step_branch_cases_match_jax(case, backend):
+    """The frames where JAX's conds meet, each taken by a select in the
+    port: a loop-closure jump on a keyframe frame (re_anchor and the
+    finalize both selected, the shed suppressed), the staging ring filling
+    on a keyframe frame outside a jump (its flush and the finalize's flush
+    on one frame), and a raytrace every third frame."""
+    every, staging, n, jump_at = _BRANCH_CASES[case]
+    cfg = _cfg(every, staging)
+    events = []
+    _drive_both(cfg, _frames(cfg, n, seed=11 + n + jump_at, jump_at=jump_at),
+                backend, events=events)
+    if case == "jump_on_keyframe":
+        assert any(j and k for j, k, _ in events), events
+    elif case == "staging_full_on_keyframe":
+        assert any(k and f and not j for j, k, f in events), events
+    else:
+        assert any(k for _, k, _ in events), events
 
 
 def test_state_round_trip_and_handover_from_jax():
@@ -187,3 +223,86 @@ def test_store_ortho_matches_jax():
     assert torch.equal(back.submaps.orthos, ts.submaps.orthos)
     with pytest.raises(ValueError, match="fuse_backend"):
         tp.ElevationPipeline(cfg, device="cpu", fuse_backend="auto")
+
+
+def _port_drive(n, seed=2):
+    from gem_tpu_torch.config import benchmark_config as tcfg
+    from gem_tpu_torch.io.replay import synthetic_frames as tframes
+
+    cfg = tcfg(length=32, max_points=1024)
+    cfg = cfg.replace(submap=dataclasses.replace(
+        cfg.submap, keyframe_distance=0.8, staging_frames=2, capacity=512,
+        max_submaps=3))
+    frames = [f for f, _, _ in tframes(cfg, n, n_points=900, speed=0.4,
+                                       seed=seed, max_range=1.5,
+                                       device="cpu")]
+    return cfg, frames
+
+
+def _assert_states_equal(a, b):
+    from gem_tpu_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(a), tree_leaves(b)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def test_pipeline_state_from_checkpoint_continues_like_step(tmp_path):
+    """`ElevationPipeline.state` assigned from a checkpoint continues as
+    `step` does from the same checkpoint, leaf for leaf."""
+    from gem_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg, frames = _port_drive(8)
+    pipe = tp.ElevationPipeline(cfg, device="cpu")
+    for f in frames[:4]:
+        pipe.process(f)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, pipe.state)
+    resumed = tp.ElevationPipeline(cfg, device="cpu")
+    resumed.state, _ = load_checkpoint(path, cfg, device="cpu")
+    state, _ = load_checkpoint(path, cfg, device="cpu")
+    for f in frames[4:]:
+        out = resumed.process(f)
+        state, ref_out = tp.step(state, f, cfg)
+        _assert_states_equal(resumed.state, state)
+        _assert_states_equal(out, ref_out)
+    assert int(state.submaps.num_submaps) >= 2
+
+
+def test_pipeline_scan_steps_on_stacked_frames():
+    """`ElevationPipeline.scan_steps` over a (T, ...) stacked Frame and over
+    a list of Frames equals T `step` calls, state and per-frame metrics."""
+    cfg, frames = _port_drive(6, seed=3)
+    state = tp.init_pipeline_state(cfg, "cpu")
+    rows = []
+    for f in frames:
+        state, out = tp.step(state, f, cfg)
+        rows.append(out)
+    for arg in (tp.stack_frames(frames), frames):
+        pipe = tp.ElevationPipeline(cfg, device="cpu")
+        m = pipe.scan_steps(arg)
+        _assert_states_equal(pipe.state, state)
+        assert m["keyframe"].tolist() == [bool(o.keyframe_due)
+                                          for o in rows]
+        for k in ("points_valid", "cells_fused", "shed_count"):
+            assert m[k].tolist() == [int(o.metrics[k]) for o in rows], k
+    assert any(m["keyframe"].tolist())
+
+
+def test_write_back_reads_every_source_before_writing():
+    """utils/graph.py `write_back`, the copy a captured step ends with: a
+    source that is another buffer is read before any buffer is written, a
+    source that is its own buffer is left alone, and a source of another
+    shape or type is refused."""
+    from gem_tpu_torch.utils.graph import write_back
+
+    a, b, c = torch.arange(4.0), torch.arange(4.0) + 10, torch.zeros(2)
+    write_back({"a": a, "b": b, "c": c}, {"a": b, "b": a, "c": c})
+    assert a.tolist() == [10.0, 11.0, 12.0, 13.0]
+    assert b.tolist() == [0.0, 1.0, 2.0, 3.0]
+    with pytest.raises(ValueError, match="dtype|int32|shape"):
+        write_back({"a": a}, {"a": torch.zeros(4, dtype=torch.int32)})
+    with pytest.raises(ValueError):
+        write_back({"a": a}, {"a": torch.zeros(3)})
+
