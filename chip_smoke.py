@@ -28,6 +28,12 @@ host's launch overhead is left out):
      edges, empty head and tail gaps, all padding, no point, blocks of 1
      to 7 points with repeated ids, 1,048,576 points, int32 and int64
      ids);
+     then, for each of K1, K2 and K3, the robot grid axis: one launch for
+     four uneven flagship frames (the third frames of phase 3's drive
+     with seeds 1-4 and 131072-81920 points), against the plain version
+     with the same robot axis and robot by robot against four single
+     launches, bitwise, timed in turns with the four single launches (the
+     bounds count every robot's bytes);
   6. the fuse backends on one flagship frame: pallas, segment, sort and
      stream against each other, and the `lowest` plane;
   7. the step on the card (ElevationPipeline: CUDA graphs) vs the same
@@ -53,10 +59,11 @@ host's launch overhead is left out):
      card and on the CPU from the same inputs, with both times;
  11. the fleet: four flagship robots (131072-point frames, uneven point
      counts and speeds, 10 frames) through `FleetPipeline` (one CUDA graph
-     per fleet frame) on the stream path, each robot bitwise a separate
-     ElevationPipeline on its frames, K1 and K2 launched once per robot and
-     frame (counted on the device); the same at L=256 on the pallas path
-     (K3 five times per robot and frame); then the README's
+     of one batched step per fleet frame) on the stream path, each robot
+     bitwise a separate ElevationPipeline on its frames, K1 and K2
+     launched once per fleet frame (counted on the device); the same on
+     the pallas path (K3 five times and K2 once per fleet frame); then the
+     README's
      loop-detect command (`fleet --robots 2 --frames 80 --world-seed 3
      --drift-yaw 8 --drift-x 1.0 --loop-detect --publish-interpr`) on the
      card and on the CPU, the same loops and pairs;
@@ -73,8 +80,10 @@ host's launch overhead is left out):
      20-29 from torch.profiler and the peak memory of each; scan_steps with
      T=10 against 10 eager steps, twice, bitwise; and (after phase 11) the
      4-robot flagship fleet, FleetPipeline against eager `fleet_step`,
-     bitwise, with both fleet-frame medians; and whether `torch.cond`
-     captures into a graph (a child process).
+     bitwise, with both fleet-frame medians, and each alone under the
+     profiler (device events and ms per fleet frame, busy share, peak
+     memory) beside the single step's; and whether `torch.cond` captures
+     into a graph (a child process).
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
 step and fleet-frame medians, one JSON line of per-kernel results (its
@@ -84,13 +93,13 @@ raises: the script exits non-zero and prints no result.  It imports no jax.
 
 With `--old DIR`, phases 3, 4 and 5 also time an earlier version of K1,
 K2 and K3, those of whose sources DIR holds: `fuse_stream.cu` with the
-current C entry point (K1 before its Hopper redesign, one thread per
-cell), and `features.cu` and `segment_stats.cu` with the C entry points
+C entry point it had until the robot axis (K1 before its Hopper
+redesign, one thread per cell), and `features.cu` and `segment_stats.cu` with the C entry points
 they had before theirs (K2 took the resolution as a double; K3 took
 per-segment run offsets, found by `torch.searchsorted`, and `fuse_pallas`
 passed it a (1, N) zero stack for each unused role).  They are built
 beside the current sources with the same nvcc flags, held to the plain
-versions, and timed in turns with the current ones on the same inputs
+versions (without a robot axis), and timed in turns with the current ones on the same inputs
 (earlier, current, current, earlier); `nvcc -Xptxas -v` and a count of
 fp64, conversion and call instructions in the SASS of each version are
 printed.
@@ -439,11 +448,12 @@ def k1_bound(args):
     """K1's least bytes: its 16 output rows, the run offsets, the four
     columns of the sorted points that lie in a cell (the pad lanes after
     them are never read), and the priors (elevation, variance) of the
-    cells that hold points."""
+    cells that hold points; with a robot axis, every robot's."""
     offsets, h, v, inten, colf, elev0, _, _ = args
-    occupied = int((offsets[1:] > offsets[:-1]).sum())
+    occupied = int((offsets[..., 1:] > offsets[..., :-1]).sum())
+    in_cells = int((offsets[..., -1] - offsets[..., 0]).sum())
     nbytes = (16 * elev0.numel() * 4 + offsets.numel() * 8
-              + 4 * int(offsets[-1]) * 4 + 2 * occupied * 4)
+              + 4 * in_cells * 4 + 2 * occupied * 4)
     return bound(nbytes)
 
 
@@ -469,8 +479,8 @@ class Earlier:
 
     _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     SIGNATURES = {
-        # K1 before its redesign (one thread per cell): the current
-        # entry point
+        # K1 before its redesign (one thread per cell): the entry point
+        # it kept until the robot axis
         "fuse_stream.cu": ("gem_fuse_stream_aggregate",
                            (_P,) * 8 + (_I, _F, _F, _F, _I, _I, _P)),
         # K2 before its redesign: ..., L, resolution (double), ...
@@ -777,13 +787,15 @@ def k3_kernel_only(args):
     from gem_tpu_torch.kernels import _build
 
     ids_s, sv, mv, xv, S = args
-    outs = [torch.empty((x.shape[0], S), dtype=torch.float32,
+    lead = ids_s.shape[:-1]
+    outs = [torch.empty((x.shape[0],) + lead + (S,), dtype=torch.float32,
                         device=ids_s.device) for x in (sv, mv, xv)]
     lib = _build.library()
+    n = ids_s.shape[-1]
     call = (ids_s.data_ptr(), int(ids_s.dtype == torch.int64),
             sv.data_ptr(), mv.data_ptr(), xv.data_ptr(),
-            *(o.data_ptr() for o in outs), ids_s.shape[0], S, sv.shape[0],
-            mv.shape[0], xv.shape[0])
+            *(o.data_ptr() for o in outs), n, S, ids_s.numel() // max(n, 1),
+            sv.shape[0], mv.shape[0], xv.shape[0])
     launched = ctypes.c_int(0)
 
     def run():
@@ -794,11 +806,46 @@ def k3_kernel_only(args):
     return run
 
 
+def k3_library_robots(args):
+    """The yardstick with a robot axis: one `torch.segment_reduce` call per
+    role over every robot's (R, N) sorted columns, with offsets computed
+    beforehand; each robot's pad lanes fall into one extra segment of its
+    own, which is cut off.  Returns (closure, results as (F, R, S) per
+    role)."""
+    ids_s, sv, mv, xv, S = args
+    R, n = ids_s.shape
+    offs = torch.searchsorted(ids_s, torch.arange(
+        S + 1, device=ids_s.device, dtype=ids_s.dtype).expand(
+        R, S + 1).contiguous()).to(torch.int64)
+    offs = offs + n * torch.arange(R, device=ids_s.device)[:, None]
+    offsets = torch.cat([offs.reshape(-1), offs.new_full((1,), R * n)])
+    roles = [(x.reshape(x.shape[0], -1).t().contiguous(), kind, init)
+             for x, kind, init in ((sv, "sum", 0.0), (mv, "amin",
+                                                       float("inf")),
+                                   (xv, "amax", float("-inf")))
+             if x.shape[0]]
+
+    def run():
+        return [torch.segment_reduce(d, kind, offsets=offsets, axis=0,
+                                     initial=init, unsafe=True)
+                for d, kind, init in roles]
+
+    def results():
+        out = iter(run())
+        return tuple(
+            next(out).reshape(R, S + 1, -1)[:, :S].permute(2, 0, 1)
+            if x.shape[0] else torch.empty((0, R, S), device=x.device)
+            for x in (sv, mv, xv))
+    return run, results
+
+
 def k3_library(args):
     """The yardstick: one `torch.segment_reduce` call per role of the call
     (sum, amin, amax), on the same sorted columns with offsets computed
     beforehand.  Returns (closure, results as (F, S) per role)."""
     ids_s, sv, mv, xv, S = args
+    if ids_s.dim() == 2:
+        return k3_library_robots(args)
     offsets = torch.searchsorted(ids_s, torch.arange(
         S + 1, device=ids_s.device, dtype=ids_s.dtype)).to(torch.int64)
     m = int(offsets[-1])
@@ -821,11 +868,14 @@ def k3_library(args):
 
 def k3_bound(args):
     """K3's least bytes for one call: the sorted ids and the used columns
-    read once, the (F, S) results written once."""
+    read once, the (F, S) results written once; with a robot axis, every
+    robot's."""
     ids_s, sv, mv, xv, S = args
     f_in = sv.shape[0] + mv.shape[0] + xv.shape[0]
-    n = ids_s.shape[0]
-    return bound(n * ids_s.element_size() + f_in * n * 4 + f_in * S * 4)
+    n = ids_s.numel()
+    robots = n // max(ids_s.shape[-1], 1)
+    return bound(n * ids_s.element_size() + f_in * n * 4
+                 + f_in * S * robots * 4)
 
 
 def sparse_block_ids(rng, S, block=2048):
@@ -963,6 +1013,174 @@ def phase_k3(cfg_fn, dev, old=None):
             flagship = (cfg, ms, batch, lowest)
     adv_err = k3_adversarial(dev)
     return results, adv_err, flagship
+
+
+def robot_axis_frames(cfg_fn, dev, R=4, n=1 << 17):
+    """R uneven flagship frames: robot r's is the third frame of phase
+    3's drive with seed 1 + r and n - 16384 r points (two frames stepped
+    into its map first), through the step's stages up to the fuse.
+    Returns (cfg, stacked moved maps, stacked point batches, the maps,
+    the batches)."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
+    from gem_tpu_torch.utils.tree import tree_map
+
+    cfg = cfg_fn(max_points=n)
+    maps, batches = [], []
+    for r in range(R):
+        frames = [f for f, _, _ in synthetic_frames(
+            cfg, 3, n_points=n - 16384 * r, speed=0.5, seed=1 + r,
+            device=dev)]
+        state = init_pipeline_state(cfg, dev)
+        for f in frames[:2]:
+            state, _ = step(state, f, cfg)
+        ms, batch, _ = frame_batch(state, frames[2], cfg)
+        maps.append(ms)
+        batches.append(batch)
+    stack = lambda xs: tree_map(lambda *t: torch.stack(t), xs[0], *xs[1:])
+    return cfg, stack(maps), stack(batches), maps, batches
+
+
+def phase_robot_axis(cfg_fn, dev):
+    """Phases 3-5 with the robot axis: K1, K2 and K3 launched once for 4
+    uneven flagship frames (`robot_axis_frames`), each against its plain
+    version with the same robot axis (as in phases 3-5) and robot by
+    robot against its single launch on that robot's inputs, bitwise.
+    Times: the robot-axis kernel (device time, CUDA graph), the four
+    single launches in turns with it, the plain version, and for K3 the
+    `torch.segment_reduce` yardstick; the bounds count every robot's
+    bytes.  Returns {kernel: (max abs err, ms, plain ms, (bound ms,
+    by), library ms or None, singles ms)}."""
+    from gem_tpu_torch.kernels import features as ft
+    from gem_tpu_torch.kernels import fuse_stream as fs
+    from gem_tpu_torch.kernels import segment_stats as sst
+    from gem_tpu_torch.utils.tree import tree_map
+
+    cfg, ms, batch, maps, batches = robot_axis_frames(cfg_fn, dev)
+    R, L = len(maps), cfg.map.length
+    pts = [int(b.valid.sum()) for b in batches]
+    out = {}
+
+    # --- K1 -----------------------------------------------------------
+    args = (*fs.sort_points(batch, L * L), ms.elevation.reshape(R, -1),
+            ms.variance.reshape(R, -1), cfg.map)
+    k = fs.fuse_stream_aggregate(*args)
+    again = fs.fuse_stream_aggregate(*args)
+    p = fs.fuse_stream_aggregate_plain(*args)
+    torch.cuda.synchronize()
+    fail_unless(tuple(k.shape) == (R, 16, L * L) and bitwise_equal(k, again),
+                "K1 R=4: shape or two launches differ")
+    errs = [rows_compare(k[r], p[r]) for r in range(R)]
+    singles = [(*fs.sort_points(batches[r], L * L),
+                maps[r].elevation.reshape(-1), maps[r].variance.reshape(-1),
+                cfg.map) for r in range(R)]
+    for r in range(R):
+        fail_unless(bitwise_equal(k[r], fs.fuse_stream_aggregate(
+            *singles[r])), f"K1 R=4: robot {r} differs from its single "
+            "launch")
+    fused_k = fs.apply_aggregates(ms, cfg, k)
+    fused_p = fs.apply_aggregates(ms, cfg, p)
+    plane_err = max(float((getattr(fused_k, key) - getattr(fused_p, key))
+                          .abs().max())
+                    for key in ("elevation", "variance", "lowest",
+                                "intensity"))
+    fail_unless(plane_err <= 5e-5 and bool(torch.equal(fused_k.color,
+                                                        fused_p.color)),
+                f"K1 R=4: planes differ by {plane_err}")
+    t = in_turns({"robots": lambda: fs.fuse_stream_aggregate(*args),
+                  "singles": lambda: [fs.fuse_stream_aggregate(*a)
+                                      for a in singles]}, graph_ms, 10)
+    t_p = cuda_ms(lambda: fs.fuse_stream_aggregate_plain(*args), 5)
+    b = k1_bound(args)
+    print(f"phase 3 K1 R={R} (robot grid axis, one launch) points={pts}: "
+          f"ok selection_rows=bitwise robots_vs_single_launches=bitwise "
+          f"run_to_run=bitwise W_max_rel_err={max(e[0] for e in errs):.3g} "
+          f"H_max_abs_err={max(e[1] for e in errs):.3g} planes_max_abs_err="
+          f"{plane_err:.3g} kernel_ms={t['robots']:.4f} "
+          f"four_single_launches_ms={t['singles']:.4f} plain_ms={t_p:.4f} "
+          f"bound_ms={b[0]:.4f} (R x the bytes) share_of_bound="
+          f"{b[0] / t['robots']:.3f}", flush=True)
+    out["fuse_stream_aggregate"] = (plane_err, t["robots"], t_p, b, None,
+                                    t["singles"])
+    del args, singles, k, again, p, fused_p
+
+    # --- K2, on the fused maps ------------------------------------------
+    mcfg = cfg.map
+    k = ft.plane_fit_features(fused_k, mcfg)
+    p = ft.compute_features(fused_k, mcfg)
+    torch.cuda.synchronize()
+    keys = ("slope", "rough", "traver", "normal_z", "neighbor_count")
+    for key in keys:
+        fail_unless(bool(torch.equal(getattr(k, key), getattr(p, key))),
+                    f"K2 R=4: {key} differs from the plain version")
+    one = [tree_map(lambda x: x[r].contiguous(), fused_k) for r in range(R)]
+    for r in range(R):
+        s = ft.plane_fit_features(one[r], mcfg)
+        fail_unless(all(bitwise_equal(getattr(k, key)[r], getattr(s, key))
+                        for key in keys),
+                    f"K2 R=4: robot {r} differs from its single launch")
+    cells = R * L * L
+    fitted = int(((fused_k.elevation != mcfg.invalid_elevation)
+                  & (p.neighbor_count >= mcfg.feature_min_neighbors)).sum())
+    b = bound(24 * cells, K2_OPS_FITTED * fitted
+              + K2_OPS_COUNT * (cells - fitted))
+    t = in_turns({"robots": lambda: ft.plane_fit_features(fused_k, mcfg),
+                  "singles": lambda: [ft.plane_fit_features(m, mcfg)
+                                      for m in one]}, graph_ms, 20)
+    t_p = cuda_ms(lambda: ft.compute_features(fused_k, mcfg), 2)
+    print(f"phase 4 K2 R={R} L={L} (robot grid axis, one launch): ok "
+          f"planes=bitwise robots_vs_single_launches=bitwise fitted="
+          f"{fitted} kernel_ms={t['robots']:.4f} four_single_launches_ms="
+          f"{t['singles']:.4f} plain_ms={t_p:.4f} bound_ms={b[0]:.4f} "
+          f"({b[1]}) share_of_bound={b[0] / t['robots']:.3f}", flush=True)
+    out["plane_fit_features"] = (0.0, t["robots"], t_p, b, None,
+                                 t["singles"])
+    del k, p, one, fused_k
+
+    # --- K3, on the five calls of the pallas fuse -----------------------
+    calls = fuse_pallas_calls(ms, cfg, batch)
+    err = 0.0
+    tot = {"kernel": 0.0, "singles": 0.0, "wrapper": 0.0, "plain": 0.0,
+           "library": 0.0, "bound": 0.0}
+    for a in calls:
+        ids_s, sv, mv, xv, S = a
+        fail_unless(ids_s.dim() == 2 and ids_s.shape[0] == R,
+                    f"K3 R=4: ids {tuple(ids_s.shape)}")
+        got = sst.segment_stats_sorted(*a, with_spill=False)[:3]
+        err = max(err, k3_check(a, got, "K3 R=4"))
+        one = [(ids_s[r].contiguous(), *(x[:, r].contiguous()
+                                         for x in (sv, mv, xv)), S)
+               for r in range(R)]
+        for r in range(R):
+            s = sst.segment_stats_sorted(*one[r], with_spill=False)[:3]
+            fail_unless(all(bitwise_equal(g[:, r], x)
+                            for g, x in zip(got, s)),
+                        f"K3 R=4: robot {r} differs from its single launch")
+        lib_run, lib_results = k3_library(a)
+        k3_check(a, lib_results(), "K3 R=4 yardstick (segment_reduce)")
+        alone = [k3_kernel_only(x) for x in one]
+        tt = in_turns({"kernel": k3_kernel_only(a),
+                       "singles": lambda: [f() for f in alone]},
+                      graph_ms, 50)
+        tot["kernel"] += tt["kernel"]
+        tot["singles"] += tt["singles"]
+        tot["wrapper"] += cuda_ms(lambda: sst.segment_stats_sorted(
+            *a, with_spill=False), 20)
+        tot["plain"] += cuda_ms(lambda: sst.segment_stats_sorted_plain(*a),
+                                5)
+        tot["library"] += graph_ms(lib_run, 20)
+        tot["bound"] += k3_bound(a)[0]
+    print(f"phase 5 K3 R={R} (robot grid axis) calls=5 F="
+          f"{[tuple(x.shape[0] for x in a[1:4]) for a in calls]}: ok "
+          f"mins_maxs=bitwise robots_vs_single_launches=bitwise "
+          f"sums_max_abs_err={err:.3g} per_frame_ms: "
+          + " ".join(f"{k_}={v:.4f}" for k_, v in tot.items())
+          + f" share_of_bound={tot['bound'] / tot['kernel']:.3f}",
+          flush=True)
+    out["segment_stats_sorted"] = (err, tot["kernel"] / 5, tot["plain"] / 5,
+                                   (tot["bound"] / 5, "bytes"),
+                                   tot["library"] / 5, tot["singles"] / 5)
+    return out
 
 
 def phase_backends(cfg, ms, batch, lowest):
@@ -1435,32 +1653,32 @@ def fleet_equals_singles(fleet, singles, what):
                     f"pipeline in {bad}")
 
 
-def phase_fleet(dev):
+def phase_fleet(dev, single=None):
     """Phase 11: four robots of the flagship (1000^2 cells, 131072-point
     frames with uneven point counts, 10 frames at 1.2-1.5 m per frame, so
     each robot passes the 10 m keyframe distance once) through
-    `FleetPipeline` (one CUDA graph per fleet frame) on the stream path,
-    each robot bitwise a separate ElevationPipeline on its frames; then a
-    4-robot fleet at L=256 on the pallas path; then phase 13's fleet
-    check on the stream fleet's frames.  Returns ({backend: (fleet
-    state, its config, launches, fleet-frame median)}, phase 13's (graph,
-    eager) fleet-frame medians)."""
+    `FleetPipeline` (one CUDA graph per fleet frame, one batched step over
+    the robot axis) on the stream and on the pallas path, each robot
+    bitwise a separate ElevationPipeline on its frames, each kernel
+    launched once per fleet frame (K3 five times); then phase 13's fleet
+    check on the stream fleet's frames, beside `single`, phase 13's
+    single-step numbers.  Returns ({backend: (fleet state, its config,
+    launches, fleet-frame median)}, phase 13's fleet results)."""
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.io.replay import synthetic_frames
 
     R, T = 4, 10
+    cfg = benchmark_config()
+    n_pts = lambda r: 131072 - 16384 * r
+    streams = [[f for f, _, _ in synthetic_frames(
+        cfg, T, n_points=n_pts(r), speed=1.2 + 0.1 * r, seed=10 + r,
+        device=dev)] for r in range(R)]
     out = {}
-    for backend, cfg, n_pts in (
-            ("stream", benchmark_config(), lambda r: 131072 - 16384 * r),
-            ("pallas", benchmark_config(length=256, max_points=16384),
-             lambda r: 16384 - 2048 * r)):
-        streams = [[f for f, _, _ in synthetic_frames(
-            cfg, T, n_points=n_pts(r), speed=1.2 + 0.1 * r, seed=10 + r,
-            device=dev)] for r in range(R)]
+    for backend in ("stream", "pallas"):
         fleet, counts, times, peak = fleet_run(cfg, streams, dev, backend)
         launches = counts["device"]
         per = {"stream": (1, 1, 0), "pallas": (0, 1, 5)}[backend]
-        check_launches(counts, {k: n * R * T for k, n in zip(
+        check_launches(counts, {k: n * T for k, n in zip(
             ("fuse_stream_aggregate", "plane_fit_features",
              "segment_stats_sorted"), per)}, f"fleet {backend}")
         fleet_equals_singles(fleet, single_pipelines(cfg, streams, dev,
@@ -1474,18 +1692,19 @@ def phase_fleet(dev):
         med = statistics.median(times[1:])
         print(f"phase 11 fleet {backend} R={R} L={cfg.map.length} "
               f"P={cfg.max_points} points={[n_pts(r) for r in range(R)]} "
-              f"{T} frames (FleetPipeline: CUDA graph, profiled): ok "
-              f"robots_vs_single_pipelines=bitwise device_launches="
-              f"{launches} fleet_frame_ms_median(2..{T})={med:.3f} "
+              f"{T} frames (FleetPipeline: one batched step, CUDA graph, "
+              f"profiled): ok robots_vs_single_pipelines=bitwise "
+              f"device_launches={launches} launches_per_fleet_frame="
+              f"{ {k: v / T for k, v in launches.items()} } "
+              f"fleet_frame_ms_median(2..{T})={med:.3f} "
               f"per_robot_ms={med / R:.3f} first_frame_ms={times[0]:.1f} "
               f"max_memory_allocated={peak} per_robot_fused_cells={fused} "
               f"num_submaps={fleet.submaps.num_submaps.tolist()} "
               f"dropped={fleet.submaps.dropped.tolist()}", flush=True)
         out[backend] = (fleet, cfg, launches, med)
-        if backend == "stream":
-            graph_ms = phase_graph_fleet(dev, cfg, streams)
-        del streams
-    return out, graph_ms
+    graph = phase_graph_fleet(dev, cfg, streams, single)
+    del streams
+    return out, graph
 
 
 def phase_fleet_cli(dev):
@@ -1764,7 +1983,7 @@ def differing_leaves(a, b):
 
     a, b = tree_leaves(a), tree_leaves(b)
     fail_unless(a.keys() == b.keys(), "graph vs eager: other leaves")
-    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    raw = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
     return [k for k in a if a[k].dtype != b[k].dtype
             or a[k].shape != b[k].shape
             or not torch.equal(raw(a[k]), raw(b[k]))]
@@ -1867,7 +2086,8 @@ def phase_graph(dev, frames):
       * `ElevationPipeline.scan_steps` (T=10, one graph of 10 steps) on
         frames 0-9 and then 10-19 against 20 eager steps, bitwise, with
         the per-frame time of the second call (a replay).
-    Returns {backend: (graph median ms, eager median ms)}."""
+    Returns {backend: (graph median ms, eager median ms, graph profile,
+    eager profile)}, a profile as `profiled_drive` returns it."""
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
                                                 init_pipeline_state, step)
@@ -1968,7 +2188,7 @@ def phase_graph(dev, frames):
               f"scan_steps T=10 frames 0-19 bitwise, replay ms_per_frame="
               f"{scan_ms:.3f} eager_loop ms_per_frame={loop_ms:.3f} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        out[backend] = (g_ms, e_ms)
+        out[backend] = (g_ms, e_ms, g_busy, e_busy)
     return out
 
 
@@ -2006,22 +2226,26 @@ def phase_cond_probe():
           flush=True)
 
 
-def phase_graph_fleet(dev, cfg, streams):
+def phase_graph_fleet(dev, cfg, streams, single=None):
     """Phase 13, the fleet: phase 11's four flagship robots through
     `FleetPipeline` (one CUDA graph per fleet frame) under
     set_sync_debug_mode("error") and through eager `fleet_step`, in turns;
     state and outputs bitwise after every frame, the fleet-frame median of
-    each over frames 2-10.  Returns (graph ms, eager ms)."""
+    each over frames 2-10.  Then each alone on fresh state, fleet frames
+    5-9 under torch.profiler: device events and device ms per fleet frame,
+    device-busy share, peak memory added, printed beside `single` (phase
+    13's graph and eager single-step results, stream).  Returns (graph ms,
+    eager ms, graph profile, eager profile)."""
     from gem_tpu_torch.multirobot.fleet import (FleetPipeline, fleet_step,
                                                 make_fleet_state,
                                                 stack_frames)
 
     R, T = len(streams), len(streams[0])
+    stacked = [stack_frames([s[t] for s in streams]) for t in range(T)]
     fleet = FleetPipeline(cfg, R, dev)
     ref = make_fleet_state(cfg, R, dev)
     t_graph, t_eager = [], []
-    for t in range(T):
-        frames = stack_frames([s[t] for s in streams])
+    for t, frames in enumerate(stacked):
         for side in ((0, 1) if t % 2 == 0 else (1, 0)):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -2037,12 +2261,39 @@ def phase_graph_fleet(dev, cfg, streams):
         fail_unless(not bad, f"graph fleet frame {t}: {bad} differ")
     g_ms, e_ms = statistics.median(t_graph[1:]), statistics.median(
         t_eager[1:])
-    print(f"phase 13 graph fleet stream R={R} L={cfg.map.length} {T} frames: "
-          f"ok graph_vs_eager_fleet_step=bitwise every frame; "
-          f"sync_debug=error fleet_frame_ms_median(2..{T}) graph={g_ms:.3f} "
-          f"eager={e_ms:.3f} first_frame_ms graph={t_graph[0]:.1f} "
-          f"eager={t_eager[0]:.1f}", flush=True)
-    return g_ms, e_ms
+    del fleet, ref, got, want
+
+    held = {}
+
+    def graph_frame(f):
+        if "pipe" not in held:
+            held["pipe"] = FleetPipeline(cfg, R, dev)
+        held["pipe"].process(f)
+
+    def eager_frame(f):
+        if "state" not in held:
+            held["state"] = make_fleet_state(cfg, R, dev)
+        held["state"], _ = fleet_step(held["state"], f, cfg)
+
+    g_prof = profiled_drive(graph_frame, stacked, lo=5)
+    held.clear()
+    e_prof = profiled_drive(eager_frame, stacked, lo=5)
+    held.clear()
+    prof = lambda p: (f"busy_share={p[0]:.4f} device_events_per_frame="
+                      f"{p[1]:.1f} device_ms_per_frame={p[2]:.3f} "
+                      f"peak_bytes={p[3]}")
+    beside = ""
+    if single is not None:
+        beside = (f"; single step (phase 13, stream, frames 20..29) graph: "
+                  f"{prof(single[2])}; eager: {prof(single[3])}")
+    print(f"phase 13 graph fleet stream R={R} L={cfg.map.length} {T} frames "
+          f"(one batched step): ok graph_vs_eager_fleet_step=bitwise every "
+          f"frame; sync_debug=error fleet_frame_ms_median(2..{T}) graph="
+          f"{g_ms:.3f} eager={e_ms:.3f} first_frame_ms graph="
+          f"{t_graph[0]:.1f} eager={t_eager[0]:.1f} profile(fleet frames "
+          f"5..{T - 1}) graph: {prof(g_prof)}; eager: {prof(e_prof)}"
+          f"{beside}", flush=True)
+    return g_ms, e_ms, g_prof, e_prof
 
 
 def main():
@@ -2073,6 +2324,7 @@ def main():
     old = Earlier(args.old) if args.old else None
     k1, prior = phase_k1(benchmark_config, dev, old)
     k3, k3_adv_err, flagship_frame = phase_k3(benchmark_config, dev, old)
+    robots = phase_robot_axis(benchmark_config, dev)
     phase_backends(*flagship_frame)
     del flagship_frame
     phase_parity(dev, "stream")
@@ -2097,7 +2349,7 @@ def main():
     phase_global_map_cli(dev)
     phase_global_map(dev, cloud)
     del cloud
-    fleets, fleet_graph_ms = phase_fleet(dev)
+    fleets, fleet_graph = phase_fleet(dev, graph_ms["stream"])
     phase_cond_probe()
     phase_fleet_cli(dev)
     phase_distributed(dev, *fleets["stream"][:2])
@@ -2144,15 +2396,30 @@ def main():
          "library_eager_ms": k3_main["library_eager"],
          "wrapper_ms": k3_main["wrapper"]},
     ]
+    # the robot-axis forms: one launch for the 4-robot fleet frame
+    # (phases 3-5), launches counted on the device in phase 11's fleets
+    for k in list(kernels):
+        err, ms_, plain, (b_ms, b_by), lib, singles = robots[k["name"]]
+        n = fleet_launches[k["name"]]
+        kernels.append({
+            "name": f"{k['name']} (robot axis, R=4)", "route": "cuda",
+            "source": k["source"], "replaces": k["replaces"],
+            "launches": n, "launches_per_fleet_frame": n / 10,
+            "max_abs_err": err, "ms": ms_, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "four_single_launches_ms": singles})
     print(f"flagship step_ms_median graph stream={graph_ms['stream'][0]:.3f} "
           f"pallas={graph_ms['pallas'][0]:.3f}, eager stream="
           f"{graph_ms['stream'][1]:.3f} pallas={graph_ms['pallas'][1]:.3f} "
           f"(phase 13); profiled graph stream={step_stream:.3f} pallas="
           f"{step_pallas:.3f} (phase 8); fleet_frame_ms_median(R=4) graph "
-          f"stream={fleet_ms['stream']:.3f} pallas(L=256)="
+          f"stream={fleet_ms['stream']:.3f} pallas="
           f"{fleet_ms['pallas']:.3f} (phase 11), stream graph="
-          f"{fleet_graph_ms[0]:.3f} eager={fleet_graph_ms[1]:.3f} "
-          f"(phase 13)", flush=True)
+          f"{fleet_graph[0]:.3f} eager={fleet_graph[1]:.3f} (phase 13); "
+          f"device events / ms per frame, graph: single step stream="
+          f"{graph_ms['stream'][2][1]:.1f} / {graph_ms['stream'][2][2]:.3f}"
+          f" fleet frame (R=4)={fleet_graph[2][1]:.1f} / "
+          f"{fleet_graph[2][2]:.3f} (phase 13)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

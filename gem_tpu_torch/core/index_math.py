@@ -13,6 +13,8 @@ s = (g + start) mod L).  C semantics, as in the reference:
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from gem_tpu_torch.utils.precision import f32_recip
@@ -54,8 +56,8 @@ def position_to_geo_index(px, py, center, length: int, resolution: float):
     Even L truncates L/2 - shift/res toward zero; odd L rounds shift/res
     half away from zero (PointsToIndex, gpu_process.cu:309-330)."""
     inv = f32_recip(resolution)
-    shift_x = px - center[0]
-    shift_y = py - center[1]
+    shift_x = px - center[..., 0]
+    shift_y = py - center[..., 1]
     if length % 2 == 0:
         half = float(length // 2)
         gx = (half - shift_x * inv).to(torch.int32)
@@ -70,20 +72,20 @@ def position_to_geo_index(px, py, center, length: int, resolution: float):
 
 
 def geo_to_storage(gx, gy, start, length: int):
-    return torch.remainder(gx + start[0], length), \
-        torch.remainder(gy + start[1], length)
+    return torch.remainder(gx + start[..., 0], length), \
+        torch.remainder(gy + start[..., 1], length)
 
 
 def storage_to_geo(sx, sy, start, length: int):
-    return torch.remainder(sx - start[0] + length, length), \
-        torch.remainder(sy - start[1] + length, length)
+    return torch.remainder(sx - start[..., 0] + length, length), \
+        torch.remainder(sy - start[..., 1] + length, length)
 
 
 def geo_index_to_position(gx, gy, center, length: int, resolution: float):
     """Cell-center world position of a geographic index."""
     off = float(length // 2) - 0.5 if length % 2 == 0 else float(length // 2)
-    px = center[0] + (off - gx.to(torch.float32)) * resolution
-    py = center[1] + (off - gy.to(torch.float32)) * resolution
+    px = center[..., 0] + (off - gx.to(torch.float32)) * resolution
+    py = center[..., 1] + (off - gy.to(torch.float32)) * resolution
     return px, py
 
 
@@ -109,22 +111,56 @@ def shift_clear_band(start_indice_i, index_shift_i, length: int):
     return first, count
 
 
-def roll_to_geo(plane, start):
-    """Storage-indexed (L, L, ...) plane -> geographic layout:
-    out[g] = plane[(g + start) mod L].  The counterpart of
-    `jnp.roll(plane, -start)`, written as a gather by device indices so the
-    shift never has to be read to the host."""
-    L = plane.shape[0]
+def take_along(plane, idx, dim: int):
+    """`plane` (..., L, L) indexed along `dim` (-2: rows, -1: columns) by
+    `idx` (..., k), one index row per leading index.  One robot (or none)
+    takes `index_select`; several, a gather."""
+    lead = plane.shape[:-2]
+    if math.prod(lead) == 1:
+        out = plane.reshape(plane.shape[-2:]).index_select(dim,
+                                                           idx.reshape(-1))
+        return out.reshape(lead + out.shape)
+    shape = list(plane.shape)
+    shape[dim] = idx.shape[-1]
+    ix = idx[..., :, None] if dim == -2 else idx[..., None, :]
+    return plane.gather(dim, ix.expand(shape))
+
+
+def _roll(plane, start, sign: int):
+    """out[g] = plane[(g + sign * start) mod L] over the two dims after
+    `start`'s leading (robot) dims, by device indices, so the shift is
+    never read to the host.  One robot (or none) takes two
+    `index_select`s; several, an `index_select` of every robot's rows and
+    a gather of the columns."""
+    nb = start.dim() - 1
+    L = plane.shape[nb]
     ar = torch.arange(L, device=plane.device)
-    rows = torch.remainder(ar + start[0], L)
-    cols = torch.remainder(ar + start[1], L)
-    return plane.index_select(0, rows).index_select(1, cols)
+    shift = (lambda s: ar + s) if sign > 0 else (lambda s: ar - s)
+    rows = torch.remainder(shift(start[..., 0:1]), L)
+    cols = torch.remainder(shift(start[..., 1:2]), L)
+    lead, rest = plane.shape[:nb], plane.shape[nb:]
+    B = math.prod(lead)
+    if B == 1:
+        out = plane.reshape(rest).index_select(0, rows.reshape(L))
+        return out.index_select(1, cols.reshape(L)).reshape(plane.shape)
+    base = torch.arange(0, B * L, L, device=plane.device).reshape(
+        lead + (1,))
+    out = plane.reshape((B * L,) + rest[1:]).index_select(
+        0, (rows + base).reshape(-1)).reshape(plane.shape)
+    trail = (1,) * (plane.dim() - nb - 2)
+    return out.gather(nb + 1, cols.reshape(lead + (1, L) + trail).expand(
+        plane.shape))
+
+
+def roll_to_geo(plane, start):
+    """Storage-indexed (..., L, L, ...) plane -> geographic layout:
+    out[g] = plane[(g + start) mod L].  The counterpart of
+    `jnp.roll(plane, -start)`.  `start` is (2,), or (..., 2) with the
+    plane's leading robot dims (each robot rolled by its own start)."""
+    return _roll(plane, start, 1)
 
 
 def roll_to_storage(plane, start):
-    """Geographic (L, L) plane -> storage layout (`jnp.roll(plane, start)`)."""
-    L = plane.shape[0]
-    ar = torch.arange(L, device=plane.device)
-    rows = torch.remainder(ar - start[0], L)
-    cols = torch.remainder(ar - start[1], L)
-    return plane.index_select(0, rows).index_select(1, cols)
+    """Geographic (..., L, L) plane -> storage layout
+    (`jnp.roll(plane, start)`); `start` as in `roll_to_geo`."""
+    return _roll(plane, start, -1)

@@ -14,6 +14,9 @@ Scalars:
   start      i32 (2,)  circular-buffer rotation (storage = geo + start mod L)
   center     f32 (2,)  world position of the window center
   sensor_z   f32 ()    sensor height at the latest move
+
+A fleet's state carries a leading robot axis on every leaf: planes
+(R, L, L), `start` and `center` (R, 2), `sensor_z` (R,).
 """
 
 from __future__ import annotations

@@ -44,6 +44,10 @@
 //  * Phase 2: the block's threads run the eigen epilogue over the queue,
 //    every lane busy however the fitted cells are scattered over the tile,
 //    where the first version ran it for every cell.
+// Robot axis: blockIdx.z is the robot r of an (R, L, L) stack; the block
+// reads elevation plane r and start r and writes output plane r, so the
+// wrap-around stays inside each robot's plane.  R = 1 is the single
+// launch.
 // Built with --fmad=false so every product and sum rounds as in the plain
 // version: the eigenvector is picked by float equality, and acos near 1
 // turns one ULP of normal_z into ~3e-4 rad.
@@ -163,6 +167,16 @@ plane_fit_kernel(const float* __restrict__ elev, const int* __restrict__ start,
   __shared__ float fq[7][kTileW * kTileH];
   __shared__ int fq_cell[kTileW * kTileH];
   __shared__ int fq_len;
+  {   // the block's robot: its planes and start
+    const int64_t plane = static_cast<int64_t>(blockIdx.z) * L * L;
+    elev += plane;
+    start += 2 * blockIdx.z;
+    slope += plane;
+    rough += plane;
+    traver += plane;
+    normal_z += plane;
+    count += plane;
+  }
   const int r0 = blockIdx.y * kTileH;
   const int c0 = blockIdx.x * kTileW;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
@@ -314,16 +328,18 @@ plane_fit_kernel(const float* __restrict__ elev, const int* __restrict__ start,
 
 extern "C" int gem_plane_fit_features(
     const void* elev, const void* start, void* slope, void* rough,
-    void* traver, void* normal_z, void* count, int L, const float* table,
+    void* traver, void* normal_z, void* count, int L, int nrobot,
+    const float* table,
     float invalid_elevation, float invalid_traversability,
     float inv_slope_critical, float inv_rough_critical, float min_neighbors,
     void* stream) {
-  if (L > 0) {
+  if (L > 0 && nrobot > 0) {
     Offsets off;
     static_assert(sizeof(Offsets) == 40 * sizeof(float), "table layout");
     memcpy(&off, table, sizeof(Offsets));
     const dim3 block(kTileW, kTileH);
-    const dim3 grid((L + kTileW - 1) / kTileW, (L + kTileH - 1) / kTileH);
+    const dim3 grid((L + kTileW - 1) / kTileW, (L + kTileH - 1) / kTileH,
+                    nrobot);
     plane_fit_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(elev), static_cast<const int*>(start),
         static_cast<float*>(slope), static_cast<float*>(rough),

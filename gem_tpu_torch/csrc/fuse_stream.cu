@@ -51,6 +51,16 @@
 // occupancy to keep their stores in flight.
 //
 // Packed RGB travels as float32, exact below 2^24; it is never narrowed.
+//
+// Robot axis: the grid is (tiles of one robot's ncell cells, R).  Block
+// (t, r) owns cells [256t, 256t + 256) of robot r: it reads robot r's row
+// of the (R, ncell + 1) offsets, which are absolute into the flat point
+// arrays, and its priors at r * ncell, and writes rows into the (R, 16,
+// ncell) output at r * 16 * ncell.  Tiles never hold two robots' cells, and
+// robot r's points start at r * P_pad with P_pad a multiple of kItems, so
+// the float4 alignment test and the per-warp cut see each robot's runs
+// exactly as a launch for that robot alone does: robot r's rows are
+// bitwise its single launch's.  R = 1 is the single launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -334,6 +344,12 @@ fuse_stream_aggregate_kernel(
     float invalid_elevation, float min_variance, float mahalanobis,
     int with_lowest) {
   __shared__ Tile t;
+  // robot blockIdx.y: its offsets row, priors and output rows
+  const int64_t robot = blockIdx.y;
+  offsets += robot * (ncell + 1);
+  elev0 += robot * ncell;
+  var0 += robot * ncell;
+  out += robot * kStats * ncell;
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * kTile;
   const int c = c0 + tid;
@@ -437,10 +453,10 @@ fuse_stream_aggregate_kernel(
 extern "C" int gem_fuse_stream_aggregate(
     const void* offsets, const void* h, const void* v, const void* inten,
     const void* colf, const void* elev0, const void* var0, void* out,
-    int ncell, float invalid_elevation, float min_variance,
+    int ncell, int nrobot, float invalid_elevation, float min_variance,
     float mahalanobis, int with_lowest, int with_color, void* stream) {
-  if (ncell > 0) {
-    const int grid = (ncell + kTile - 1) / kTile;
+  if (ncell > 0 && nrobot > 0) {
+    const dim3 grid((ncell + kTile - 1) / kTile, nrobot);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const auto* o = static_cast<const int64_t*>(offsets);
     const auto* hh = static_cast<const float*>(h);

@@ -41,6 +41,13 @@
 //  * Every output written once: the accumulator rows start at the identity
 //    (0, +inf, -inf), so empty segments need no separate fill; the block
 //    stores its rows with coalesced stores.  Outputs are stat-major, (F, S).
+//  * Robot axis: the grid is (segment blocks of one robot, R).  The ids and
+//    columns hold R robots' points, each robot's n points sorted on their
+//    own and its ids local (< S, pad lanes >= S); block (b, r) searches
+//    robot r's range [r n, r n + n) only and writes its segments into the
+//    (F, R S) results at r S.  A block never holds two robots' segments,
+//    so robot r's results are bitwise its single launch's; R = 1 is the
+//    single launch.
 //  * Owners are bound to segment ranges, not to tiles of points, so the
 //    writes of long empty stretches (the ~10^5-cell gaps before the first
 //    and after the last occupied cell of a frame) spread over the grid
@@ -214,11 +221,20 @@ __device__ __forceinline__ void reduce_part(
 template <int C, typename Id>
 __global__ void __launch_bounds__(kWarps * 32)
 segment_stats_kernel(const Id* __restrict__ ids, int64_t n, int num_segments,
-                     const Columns cols) {
+                     Columns cols) {
   __shared__ long long bounds[2];
   __shared__ float acc[C][kBlockSegs];
   __shared__ float carry_v[C][kWarps];
   __shared__ int carry_id[kWarps];
+  {   // the block's robot: its points and its results
+    const int64_t robot = blockIdx.y;
+    ids += robot * n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      cols.src[c] += robot * n;
+      cols.dst[c] += robot * num_segments;
+    }
+  }
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long s = num_segments;
@@ -277,16 +293,17 @@ segment_stats_kernel(const Id* __restrict__ ids, int64_t n, int num_segments,
 extern "C" int gem_segment_stats_sorted(
     const void* ids, int ids_int64, const void* sum_vals,
     const void* min_vals, const void* max_vals, void* sums, void* mins,
-    void* maxs, int64_t n, int num_segments, int n_sum, int n_min,
-    int n_max, void* stream, int* launched) {
+    void* maxs, int64_t n, int num_segments, int nrobot, int n_sum,
+    int n_min, int n_max, void* stream, int* launched) {
   *launched = 0;
-  if (num_segments <= 0) return static_cast<int>(cudaGetLastError());
+  if (num_segments <= 0 || nrobot <= 0)
+    return static_cast<int>(cudaGetLastError());
   const int grid = (num_segments + kBlockSegs - 1) / kBlockSegs;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto launch = [&](const Columns& cols, int ncols) {
     const int32_t* i32 = static_cast<const int32_t*>(ids);
     const int64_t* i64 = static_cast<const int64_t*>(ids);
-    const dim3 g(grid), b(kWarps * 32);
+    const dim3 g(grid, nrobot), b(kWarps * 32);
     switch (ncols * 2 + (ids_int64 ? 1 : 0)) {
       case 2: segment_stats_kernel<1><<<g, b, 0, st>>>(i32, n, num_segments, cols); break;
       case 3: segment_stats_kernel<1><<<g, b, 0, st>>>(i64, n, num_segments, cols); break;
@@ -299,7 +316,9 @@ extern "C" int gem_segment_stats_sorted(
     }
     ++*launched;
   };
-  // every column, in role order; one launch per kMaxCols of them
+  // every column, in role order; one launch per kMaxCols of them.  A
+  // column holds every robot's points, (R n,), and a result row every
+  // robot's segments, (R S,)
   const float* src[3] = {static_cast<const float*>(sum_vals),
                          static_cast<const float*>(min_vals),
                          static_cast<const float*>(max_vals)};
@@ -310,8 +329,9 @@ extern "C" int gem_segment_stats_sorted(
   int ncols = 0;
   for (int role = 0; role < 3; ++role) {
     for (int f = 0; f < count[role]; ++f) {
-      cols.src[ncols] = src[role] + f * n;
-      cols.dst[ncols] = dst[role] + static_cast<int64_t>(f) * num_segments;
+      cols.src[ncols] = src[role] + f * n * nrobot;
+      cols.dst[ncols] = dst[role] +
+                        static_cast<int64_t>(f) * num_segments * nrobot;
       cols.kind[ncols] = role;
       if (++ncols == kMaxCols) {
         launch(cols, ncols);

@@ -23,12 +23,14 @@ rows.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.move import ShedCells
 from gem_tpu_torch.core.state import MapState
+from gem_tpu_torch.utils.tree import lead
 
 _FIELDS = ("x", "y", "z", "variance", "intensity", "traver", "color",
            "valid")
@@ -119,7 +121,8 @@ def init_store(cfg, device) -> SubmapStore:
 def _compact_append(buf: PointBuffer, count, new: PointBuffer):
     """Append new.valid points into buf at positions [count, ...),
     compacted: the i-th valid input goes to count + (#valid before i);
-    inputs past the capacity are dropped and counted.
+    inputs past the capacity are dropped and counted.  `buf` (..., C),
+    `count` (...), `new` (..., n): one append per leading index.
 
     Written as a gather: output row j >= count takes the valid input of
     rank j - count, found by `searchsorted` on the running count of valid
@@ -128,16 +131,19 @@ def _compact_append(buf: PointBuffer, count, new: PointBuffer):
     a dump row; both place every point alike.  Every output color passes
     through f32 as in JAX's stacked scatter (exact for rgb < 2^24)."""
     C = buf.capacity
-    n = new.valid.shape[0]
+    n = new.valid.shape[-1]
     if n == 0:
         return buf, count, torch.zeros_like(count)
-    ranks = torch.cumsum(new.valid, 0, dtype=torch.int32)   # inclusive
-    total = ranks[-1]
+    ranks = torch.cumsum(new.valid, -1, dtype=torch.int32)  # inclusive
+    total = ranks[..., -1]
     appended = torch.clamp(torch.minimum(total, C - count), min=0)
-    rank = torch.arange(C, dtype=torch.int32, device=ranks.device) - count
-    take = (rank >= 0) & (rank < appended)
+    rank = torch.arange(C, dtype=torch.int32, device=ranks.device) \
+        - count[..., None]
+    take = (rank >= 0) & (rank < appended[..., None])
     src = torch.clamp(torch.searchsorted(ranks, rank + 1), max=n - 1)
-    pick = lambda f: torch.where(take, getattr(new, f)[src], getattr(buf, f))
+    src = _flat_rows(src, n)      # into every leading index's inputs
+    pick = lambda f: torch.where(take, getattr(new, f).reshape(-1)[src],
+                                 getattr(buf, f))
     out = PointBuffer(
         x=pick("x"), y=pick("y"), z=pick("z"), variance=pick("variance"),
         intensity=pick("intensity"), traver=pick("traver"),
@@ -153,13 +159,36 @@ def shed_to_buffer(shed: ShedCells) -> PointBuffer:
 
 
 def _select(when, new, old):
-    """`new` where the branch is taken; `when` None: always."""
-    return new if when is None else torch.where(when, new, old)
+    """`new` where the branch is taken; `when` None: always.  `when` is ()
+    or (R,), broadcast over the leaf's trailing dims."""
+    return new if when is None else torch.where(lead(when, new), new, old)
 
 
 def _cleared(when, old):
     """Zeros where the branch is taken; `when` None: always."""
-    return torch.zeros_like(old) if when is None else old.masked_fill(when, 0)
+    return torch.zeros_like(old) if when is None \
+        else old.masked_fill(lead(when, old), 0)
+
+
+def _flat_rows(idx, n: int):
+    """`idx` (..., k), rows of each leading index's n rows, as rows of all
+    of them flattened (leading index b's start at n * b); unchanged for
+    one leading index (or none)."""
+    lead = idx.shape[:-1]
+    if math.prod(lead) == 1:
+        return idx
+    return idx + n * torch.arange(math.prod(lead), device=idx.device
+                                  ).reshape(lead + (1,))
+
+
+def _ring_rows(slot, K: int):
+    """The row of `slot` (...) in a ring (..., K, ...) flattened to (B *
+    K, ...): one `index_select` / `index_copy` then serves every robot."""
+    return _flat_rows(slot.unsqueeze(-1), K).reshape(-1)
+
+
+def _flat_ring(ring, nb: int):
+    return ring.reshape((-1,) + ring.shape[nb + 1:])
 
 
 def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
@@ -168,15 +197,15 @@ def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     it is True: the compaction runs either way and the store keeps its old
     leaves where `when` is False (the select for JAX's `lax.cond`)."""
     st = store.staging
-    if st.x.shape[0] == 0:
+    if st.x.shape[-2] == 0:
         return store
-    flat = PointBuffer(**{f: getattr(st, f).reshape(-1) for f in _FIELDS})
+    flat = PointBuffer(**{f: getattr(st, f).flatten(-2) for f in _FIELDS})
     accum, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                           flat)
     if when is None:
         st.valid.zero_()
     else:
-        st.valid.logical_and_(~when)
+        st.valid.logical_and_(~lead(when, st.valid))
     return store.replace(
         accum=PointBuffer(**{f: _select(when, getattr(accum, f),
                                         getattr(store.accum, f))
@@ -193,16 +222,19 @@ def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
     ring (a device index, so no count is read to the host) and the ring is
     compacted on the frame it fills, by a mask.  A shed of another width
     flushes and compacts at once."""
-    S = store.staging.x.shape[0]
+    S = store.staging.x.shape[-2]
     if S == 0 or shed.x.shape[-1] != store.staging.x.shape[-1]:
         store = flush_staging(store)
         accum, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                               shed_to_buffer(shed))
         return store.replace(accum=accum, accum_count=cnt,
                              dropped=store.dropped + dropped + shed.dropped)
-    row = store.staging_used.reshape(1).long()
+    used = store.staging_used
+    rows = _ring_rows(used.long(), S)
     for f in _FIELDS:
-        getattr(store.staging, f).index_copy_(0, row, getattr(shed, f)[None])
+        flat = _flat_ring(getattr(store.staging, f), used.dim())
+        flat.index_copy_(0, rows, getattr(shed, f).reshape(
+            (-1,) + flat.shape[1:]))
     used = store.staging_used + 1
     store = store.replace(staging_used=used,
                           dropped=store.dropped + shed.dropped)
@@ -211,22 +243,22 @@ def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
 
 def grid_to_points(state: MapState, cfg, traver) -> PointBuffer:
     """Snapshot the live grid as a point set: valid cells with classified
-    traversability (gridMaptoPointCloud)."""
+    traversability (gridMaptoPointCloud); (..., L*L) per leading index."""
     L = cfg.map.length
     g = torch.arange(L, device=state.elevation.device, dtype=torch.int32)
     sx = g.repeat_interleave(L)
     sy = g.repeat(L)
-    gx, gy = im.storage_to_geo(sx, sy, state.start, L)
-    px, py = im.geo_index_to_position(gx, gy, state.center, L,
+    gx, gy = im.storage_to_geo(sx, sy, state.start[..., None, :], L)
+    px, py = im.geo_index_to_position(gx, gy, state.center[..., None, :], L,
                                       cfg.map.resolution)
-    elev = state.elevation.reshape(-1)
-    trav = traver.reshape(-1)
+    elev = state.elevation.flatten(-2)
+    trav = traver.flatten(-2)
     valid = (elev != cfg.map.invalid_elevation) \
         & (trav != cfg.map.invalid_traversability)
     return PointBuffer(x=px, y=py, z=elev,
-                       variance=state.variance.reshape(-1),
-                       intensity=state.intensity.reshape(-1), traver=trav,
-                       color=state.color.reshape(-1), valid=valid)
+                       variance=state.variance.flatten(-2),
+                       intensity=state.intensity.flatten(-2), traver=trav,
+                       color=state.color.flatten(-2), valid=valid)
 
 
 def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
@@ -237,30 +269,40 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
     the `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
     `kf_count` valid rows.  With a () bool `when`, only where it is True:
     the slot is rewritten with its old rows and every counter stays where
-    `when` is False."""
-    K = store.counts.shape[0]
-    slot = torch.remainder(store.num_submaps, K).reshape(1).long()
+    `when` is False.  With a robot axis each robot closes into its own
+    next slot."""
+    K = store.counts.shape[-1]
+    slot = torch.remainder(store.num_submaps, K).long()
+    nb = slot.dim()
     store = flush_staging(store, when)   # staged bands precede the snapshot
     merged, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                            grid_points)
 
+    rows = _ring_rows(slot, K)
+
     def write_slot(ring, value):
-        ring.index_copy_(0, slot, _select(when, value[None],
-                                          ring.index_select(0, slot)))
+        flat = _flat_ring(ring, nb)
+        old = flat.index_select(0, rows)
+        flat.index_copy_(0, rows, _select(when, value.reshape(old.shape),
+                                          old))
 
     for f in _FIELDS:
         write_slot(getattr(store.slots, f), getattr(merged, f))
-    if ortho is not None and store.orthos.shape[1] > 0:
+    if ortho is not None and store.orthos.shape[nb + 1] > 0:
         write_slot(store.orthos, ortho.to(torch.uint8))
     pose = keyframe_pose.to(torch.float32)
-    put = lambda arr, v: _select(when, arr.index_copy(0, slot, v[None]), arr)
+
+    def put(arr, v):
+        flat = _flat_ring(arr, nb)
+        new = flat.index_copy(0, rows, v.reshape((-1,) + flat.shape[1:]))
+        return _select(when, new.reshape(arr.shape), arr)
     kf_pts, kf_counts = store.kf_points, store.kf_counts
-    if kf_points is not None and store.kf_points.shape[1] > 0:
+    if kf_points is not None and store.kf_points.shape[nb + 1] > 0:
         kf_pts = put(kf_pts, kf_points.to(torch.float32))
         kf_counts = put(kf_counts, kf_count.to(torch.int32))
     return store.replace(
         counts=put(store.counts, cnt),
-        centers=put(store.centers, pose[:2]),
+        centers=put(store.centers, pose[..., :2]),
         poses=put(store.poses, pose),
         num_submaps=_select(when, store.num_submaps + 1, store.num_submaps),
         kf_ids=put(store.kf_ids, store.num_submaps),

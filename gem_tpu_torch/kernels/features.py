@@ -5,6 +5,10 @@ copies of the circular elevation buffer, masked moment sums, closed-form
 3x3 eigensolver) and of gem_tpu/kernels/features_pallas.py (the stencil
 kernel).  `plane_fit_features` is the kernel wrapper: on CPU tensors it runs
 `compute_features`, on CUDA tensors it launches K2 (csrc/features.cu).
+
+Robot axis (JAX's `vmap` of the features): an elevation stack (R, L, L)
+with one start per robot, (R, 2); K2 takes the robots as a grid axis, one
+launch for the fleet, and each robot's planes wrap around within its own.
 """
 
 from __future__ import annotations
@@ -99,8 +103,8 @@ def features_from_moments(acc: dict, interior_elev, cfg):
 def accumulate_moments(z_at, row_ok, col_ok, shape, device, cfg) -> dict:
     """The masked 5x5 moment sums of the plane fit over a `shape` block:
     `z_at(i, j)` is the elevation at offset (i, j) of every cell,
-    `row_ok(i)` (rows,) and `col_ok(j)` (cols,) say where that offset lies
-    inside the map; `cfg` is a MapConfig.  Shared by `compute_features`
+    `row_ok(i)` (..., rows) and `col_ok(j)` (..., cols) say where that
+    offset lies inside the map; `cfg` is a MapConfig.  Shared by `compute_features`
     and the row-sharded stencil (multirobot/spatial.py), which must agree
     bitwise."""
     res = cfg.resolution
@@ -110,7 +114,7 @@ def accumulate_moments(z_at, row_ok, col_ok, shape, device, cfg) -> dict:
         rows_in = row_ok(i)
         for j in range(-2, 3):
             z = z_at(i, j)
-            m = (rows_in[:, None] & col_ok(j)[None, :]
+            m = (rows_in[..., :, None] & col_ok(j)[..., None, :]
                  & (z != cfg.invalid_elevation)).to(torch.float32)
             cx = i * res
             cy = j * res
@@ -129,16 +133,17 @@ def accumulate_moments(z_at, row_ok, col_ok, shape, device, cfg) -> dict:
 
 
 def compute_features(state: MapState, cfg) -> FeatureMaps:
-    """Plain PyTorch version of K2 (`cfg` is a MapConfig)."""
+    """Plain PyTorch version of K2 (`cfg` is a MapConfig), over an (L, L)
+    plane or an (..., L, L) stack with its (..., 2) starts."""
     L = cfg.length
     elev = state.elevation
     rows = torch.arange(L, device=elev.device)
-    geo_r = torch.remainder(rows - state.start[0] + L, L)
-    geo_c = torch.remainder(rows - state.start[1] + L, L)
+    geo_r = torch.remainder(rows - state.start[..., 0:1] + L, L)
+    geo_c = torch.remainder(rows - state.start[..., 1:2] + L, L)
     acc = accumulate_moments(
-        lambda i, j: torch.roll(elev, shifts=(-i, -j), dims=(0, 1)),
+        lambda i, j: torch.roll(elev, shifts=(-i, -j), dims=(-2, -1)),
         lambda i: (geo_r + i >= 0) & (geo_r + i < L),
-        lambda j: (geo_c + j >= 0) & (geo_c + j < L), (L, L),
+        lambda j: (geo_c + j >= 0) & (geo_c + j < L), elev.shape,
         elev.device, cfg)
     slope, rough, traver, nz, _ = features_from_moments(acc, elev, cfg)
     return FeatureMaps(slope=slope, rough=rough, traver=traver, normal_z=nz,
@@ -168,8 +173,9 @@ def _offset_table(res: float) -> np.ndarray:
 
 
 def plane_fit_features(state: MapState, cfg) -> FeatureMaps:
-    """Five feature planes of the 5x5 plane fit.  CPU tensors run
-    `compute_features`; CUDA tensors launch K2 and count the launch in
+    """Five feature planes of the 5x5 plane fit, (L, L) each, or (R, L, L)
+    for a state with a robot axis.  CPU tensors run `compute_features`;
+    CUDA tensors launch K2, once for every robot, and count the launch in
     `plane_fit_features.launches`."""
     elev = state.elevation
     if elev.device.type == "cpu":
@@ -178,22 +184,27 @@ def plane_fit_features(state: MapState, cfg) -> FeatureMaps:
         raise ValueError(f"plane_fit_features: unsupported device "
                          f"{elev.device}")
     L = cfg.length
-    if elev.shape != (L, L) or elev.dtype != torch.float32 \
-            or not elev.is_contiguous():
+    lead = elev.shape[:-2]
+    if elev.shape[-2:] != (L, L) or len(lead) > 1 \
+            or elev.dtype != torch.float32 or not elev.is_contiguous():
         raise ValueError("plane_fit_features: elevation must be a "
-                         f"contiguous float32 ({L}, {L}) tensor")
+                         f"contiguous float32 ({L}, {L}) or (R, {L}, {L}) "
+                         "tensor")
     start = state.start
     if start.dtype != torch.int32 or start.device != elev.device \
-            or start.shape != (2,) or not start.is_contiguous():
+            or start.shape != lead + (2,) or not start.is_contiguous():
         raise ValueError("plane_fit_features: start must be a contiguous "
-                         "int32 (2,) tensor on the elevation's device")
-    planes = torch.empty((4, L, L), dtype=torch.float32, device=elev.device)
-    count = torch.empty((L, L), dtype=torch.int32, device=elev.device)
+                         "int32 (2,) tensor, one per robot, on the "
+                         "elevation's device")
+    planes = torch.empty((4,) + lead + (L, L), dtype=torch.float32,
+                         device=elev.device)
+    count = torch.empty(lead + (L, L), dtype=torch.int32, device=elev.device)
     lib = _build.library()
     err = lib.gem_plane_fit_features(
         elev.data_ptr(), start.data_ptr(), planes[0].data_ptr(),
         planes[1].data_ptr(), planes[2].data_ptr(), planes[3].data_ptr(),
-        count.data_ptr(), L, _offset_table(float(cfg.resolution)).ctypes.data,
+        count.data_ptr(), L, math.prod(lead),
+        _offset_table(float(cfg.resolution)).ctypes.data,
         cfg.invalid_elevation,
         cfg.invalid_traversability, f32_recip(cfg.slope_critical),
         f32_recip(cfg.rough_critical),

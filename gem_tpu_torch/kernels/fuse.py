@@ -12,9 +12,17 @@ outlier-above overwrite and the min-variance color payload.  Backends:
 
 The streaming backend, which also owns the lowest reduction, is
 kernels/fuse_stream.py; the pipeline dispatches to it directly.
+
+Robot axis (JAX's `vmap` of `fuse`): a state with planes (R, L, L) and a
+batch of (R, P) points.  The segment and sort backends fold robot r's ids
+to r * (L*L + 1) + id (each robot keeps its own dump segment) and reduce
+every robot at once; "pallas" sorts each robot's points on their own and
+K3 takes the robots as a grid axis.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,23 +52,34 @@ def fuse(state: MapState, cfg, batch: PointBatch,
     mcfg = cfg.map
     L = mcfg.length
     ncell = L * L
+    lead = state.elevation.shape[:-2]
+    nrob = math.prod(lead)
+    rob = torch.arange(nrob, device=batch.cell.device).reshape(lead + (1,))
 
     elev0 = state.elevation.reshape(-1)
     var0 = state.variance.reshape(-1)
     empty = elev0 == mcfg.invalid_elevation
     var0c = torch.clamp(var0, min=mcfg.min_variance)
 
-    valid = batch.valid
-    h = batch.height
-    v = batch.variance
-    ids = torch.where(valid, batch.cell, ncell)
-    ss = scatter.SortedSegments(ids, ncell) if backend == "sort" else None
+    flat = lambda x: x.reshape(-1)
+    valid = flat(batch.valid)
+    h = flat(batch.height)
+    v = flat(batch.variance)
+    # robot r's ids at r * (ncell + 1), its invalid lanes on its own dump
+    nseg = nrob * (ncell + 1)
+    ids = flat(torch.where(batch.valid, batch.cell.to(torch.int64), ncell)
+               + rob * (ncell + 1))
+    ss = scatter.SortedSegments(ids, nseg, rows=nrob) \
+        if backend == "sort" else None
 
     def reduce(vals, kind, fill):
-        return scatter.segment_reduce(vals, ids, ncell, kind, fill,
-                                      backend=backend, ss=ss)
+        out = scatter.segment_reduce(vals, ids, nseg, kind, fill,
+                                     backend=backend, ss=ss)
+        return out.reshape(nrob, ncell + 1)[:, :ncell].reshape(-1)
 
-    cidx = torch.clamp(batch.cell, max=ncell - 1).to(torch.int64)
+    cidx = flat(torch.clamp(batch.cell, max=ncell - 1).to(torch.int64)
+                + rob * ncell)
+    color, intensity = flat(batch.color), flat(batch.intensity)
 
     # --- anchor: prior, or highest candidate for empty cells ---------------
     h_max = reduce(torch.where(valid, h, -_INF), "max", -_INF)
@@ -96,17 +115,17 @@ def fuse(state: MapState, cfg, batch: PointBatch,
                           min=mcfg.min_variance)
 
     # --- color / intensity -------------------------------------------------
-    contributing = valid & _has_color(batch.color, batch.intensity) \
+    contributing = valid & _has_color(color, intensity) \
         & torch.where(overwrite_path[cidx], p_is_argout, inlier)
     v_c = reduce(torch.where(contributing, v, _INF), "min", _INF)
     p_is_cbest = contributing & (v == v_c[cidx])
-    best_color = reduce(torch.where(p_is_cbest, batch.color, _I32_MAX),
+    best_color = reduce(torch.where(p_is_cbest, color, _I32_MAX),
                         "min", _I32_MAX)
-    best_intensity = reduce(torch.where(p_is_cbest, batch.intensity, _INF),
+    best_intensity = reduce(torch.where(p_is_cbest, intensity, _INF),
                             "min", _INF)
     color_update = torch.isfinite(v_c) & (init_path | kalman_path
                                           | overwrite_path)
-    return _replace(state, L, new_elev, new_var, color_update, best_color,
+    return _replace(state, new_elev, new_var, color_update, best_color,
                     best_intensity)
 
 
@@ -125,28 +144,34 @@ def _posterior(W, WH, elev0, var0, var0c, empty, any_candidate):
     return post_elev, post_var, init_path, kalman_path
 
 
-def _replace(state, L, new_elev, new_var, color_update, best_color,
+def _replace(state, new_elev, new_var, color_update, best_color,
              best_intensity):
+    """The fused planes, given flat over the state's cells (all of them, or
+    (R, L*L)), in the state's (..., L, L) shape."""
+    shape = state.elevation.shape
+    flat = color_update.shape
     return state.replace(
-        elevation=new_elev.reshape(L, L),
-        variance=new_var.reshape(L, L),
+        elevation=new_elev.reshape(shape),
+        variance=new_var.reshape(shape),
         color=torch.where(color_update, best_color,
-                          state.color.reshape(-1)).reshape(L, L),
+                          state.color.reshape(flat)).reshape(shape),
         intensity=torch.where(color_update, best_intensity,
-                              state.intensity.reshape(-1)).reshape(L, L))
+                              state.intensity.reshape(flat)).reshape(shape))
 
 
 def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     """`fuse` with its reductions as five `segment_stats_sorted` calls over
     one shared sort (anchor max; argmax variance; inlier sums + outlier
     max; outlier-argmax and best-color variances; color payload), the
-    column stacks of gem_tpu's `fuse_pallas`."""
+    column stacks of gem_tpu's `fuse_pallas`.  With a robot axis each
+    robot's points are sorted on their own and each call is one K3 launch
+    per four columns for every robot."""
     mcfg = cfg.map
     L = mcfg.length
     ncell = L * L
 
-    elev0 = state.elevation.reshape(-1)
-    var0 = state.variance.reshape(-1)
+    elev0 = state.elevation.flatten(-2)
+    var0 = state.variance.flatten(-2)
     empty = elev0 == mcfg.invalid_elevation
     var0c = torch.clamp(var0, min=mcfg.min_variance)
 
@@ -163,8 +188,9 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     valid = ids_s < ncell
     hascol = hascol > 0.5
     cidx = torch.clamp(ids_s, max=ncell - 1).to(torch.int64)
+    at = lambda plane: plane.gather(-1, cidx)     # each point's cell's value
     # the (0, N) stack of a role whose result is not used: K3 skips it
-    none = torch.empty((0, ids_s.shape[0]), dtype=torch.float32,
+    none = torch.empty((0,) + ids_s.shape, dtype=torch.float32,
                        device=ids_s.device)
 
     def stats(sv, mv, xv):
@@ -175,7 +201,7 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
     _, _, xs, _ = stats(none, none, torch.where(valid, h, -_INF)[None])
     h_max = xs[0]
     any_candidate = torch.isfinite(h_max)
-    p_is_argmax = valid & (h == h_max[cidx])
+    p_is_argmax = valid & (h == at(h_max))
 
     # --- pass 2: v(argmax) fixes the empty-cell anchor variance ------------
     anchor_elev = torch.where(empty, h_max, elev0)
@@ -184,8 +210,8 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
                          none)
     anchor_var = torch.where(
         empty, torch.clamp(ms0[0], min=mcfg.min_variance), var0c)
-    a_var = anchor_var[cidx]
-    md = torch.abs(h - anchor_elev[cidx]) / torch.sqrt(
+    a_var = at(anchor_var)
+    md = torch.abs(h - at(anchor_elev)) / torch.sqrt(
         torch.where(torch.isfinite(a_var), a_var, 1.0))
     inlier = valid & (md <= mcfg.mahalanobis_threshold)
     out_mask = valid & ~inlier
@@ -202,8 +228,8 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
         & ~empty
 
     # --- pass 4: outlier-argmax variance + best-color variance -------------
-    p_is_argout = out_mask & (h == h_max_out[cidx])
-    contributing = valid & hascol & torch.where(overwrite_path[cidx],
+    p_is_argout = out_mask & (h == at(h_max_out))
+    contributing = valid & hascol & torch.where(at(overwrite_path),
                                                 p_is_argout, inlier)
     _, ms3, _, _ = stats(
         none,
@@ -216,7 +242,7 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
                           min=mcfg.min_variance)
 
     # --- pass 5: color payload ---------------------------------------------
-    p_is_cbest = contributing & (v == v_c[cidx])
+    p_is_cbest = contributing & (v == at(v_c))
     _, ms4, _, _ = stats(
         none,
         torch.stack([torch.where(p_is_cbest, color_f, _INF),
@@ -226,5 +252,5 @@ def fuse_pallas(state: MapState, cfg, batch: PointBatch) -> MapState:
                                           | overwrite_path)
     # the +inf of cells without a colored point never reaches the int cast
     best_color = torch.where(color_update, ms4[0], 0.0).to(torch.int32)
-    return _replace(state, L, new_elev, new_var, color_update, best_color,
+    return _replace(state, new_elev, new_var, color_update, best_color,
                     ms4[1])

@@ -36,6 +36,15 @@ configuration (2-key sort, the `fact` aggregate kernel).  The contract:
 3.  The dense posterior (Kalman / init / overwrite-if-higher / color) is
     elementwise tensor code, line for line the JAX one, and the storage-
     indexed `lowest` bound is rolled to the geographic layout.
+
+Robot axis (the fleet, JAX's `vmap` of `fuse_stream`): a state with planes
+(R, L, L) and a batch of (R, P) points.  Each robot's points are padded to
+P_pad, a multiple of 16, and keyed by r * (L*L + 1) + cell, so one stable
+sort puts robot r's points at r * P_pad of the flat (R * P_pad,)
+payloads, in the order a sort of its own gives (an invalid lane's L*L
+never names another robot's cell); the offsets are (R, L*L + 1),
+absolute into them.  K1 then takes the robots as a grid axis and returns
+(R, 16, L*L) rows, one launch for the fleet.
 """
 
 from __future__ import annotations
@@ -60,28 +69,54 @@ def _neg_height_key(h):
     return torch.where(neg, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
 
 
+_PAD = 16   # a robot's sorted points start on a multiple of this
+
+
 def sort_points(batch: PointBatch, ncell: int, with_color: bool = True):
     """Stable (cell, -h) sort of the batch with sanitized invalid lanes.
 
-    Returns (offsets (ncell+1,) int64 per-cell run starts, h, v, inten,
-    colf), the payloads float32 in sorted order."""
+    For a (P,) batch: (offsets (ncell+1,) int64 per-cell run starts, h, v,
+    inten, colf), the payloads (P,) float32 in sorted order.  For a batch
+    with a leading robot axis, (R, P): each robot padded with invalid
+    lanes to P_pad (a multiple of 16) and sorted as on its own, the
+    payloads flat (R * P_pad,) and the offsets (R, ncell+1), absolute
+    into them."""
     valid = batch.valid
     ids = torch.where(valid, batch.cell.to(torch.int64), ncell)
-    h = torch.where(valid, batch.height, 0.0)
-    v = torch.where(valid, batch.variance, 1.0)
-    key = (ids << 32) | _neg_height_key(h)
-    key_s, perm = torch.sort(key, stable=True)
-    ids_s = key_s >> 32
-    offsets = torch.searchsorted(
-        ids_s, torch.arange(ncell + 1, device=ids.device, dtype=torch.int64),
-        side="left")
+    # the payload columns h, v (, intensity, packed color), each with the
+    # value of an invalid lane
+    cols = [(torch.where(valid, batch.height, 0.0), 0.0),
+            (torch.where(valid, batch.variance, 1.0), 1.0)]
     if with_color:
-        inten = torch.where(valid, batch.intensity, 0.0)
-        colf = batch.color.to(torch.float32)       # packed rgb < 2^24: exact
-        inten_s, colf_s = inten[perm], colf[perm]
-    else:
-        inten_s = colf_s = torch.zeros_like(h)
-    return offsets, h[perm], v[perm], inten_s, colf_s
+        cols += [(torch.where(valid, batch.intensity, 0.0), 0.0),
+                 # packed rgb < 2^24: exact
+                 (batch.color.to(torch.float32), 0.0)]
+    lead = ids.shape[:-1]
+    if lead:
+        ids = ids.reshape(-1, ids.shape[-1])
+        cols = [(c.reshape(ids.shape), fill) for c, fill in cols]
+        pad = (-ids.shape[-1]) % _PAD
+        if pad:
+            ids = torch.nn.functional.pad(ids, (0, pad), value=ncell)
+            cols = [(torch.nn.functional.pad(c, (0, pad), value=fill), fill)
+                    for c, fill in cols]
+        # robot r's ids at r * (ncell + 1): one sort puts the robots one
+        # after another, each in the order a sort of its own gives
+        nrob = ids.shape[0]
+        ids = (ids + (ncell + 1) * torch.arange(
+            nrob, device=ids.device)[:, None]).reshape(-1)
+        cols = [(c.reshape(-1), fill) for c, fill in cols]
+    key = (ids << 32) | _neg_height_key(cols[0][0])
+    key_s, perm = torch.sort(key, stable=True)
+    nseg = (ncell + 1) * (nrob if lead else 1)
+    offsets = torch.searchsorted(key_s >> 32, torch.arange(
+        nseg, device=ids.device, dtype=torch.int64), side="left")
+    if lead:
+        offsets = offsets.reshape(nrob, ncell + 1)
+    out = [c[perm] for c, _ in cols]
+    if not with_color:
+        out += [torch.zeros_like(out[0])] * 2
+    return (offsets, *out)
 
 
 def _has_color(colf, inten):
@@ -94,66 +129,87 @@ def fuse_stream_aggregate_plain(offsets, h, v, inten, colf, elev0, var0,
                                 mcfg, with_lowest: bool = True,
                                 with_color: bool = True):
     """Plain PyTorch version of K1: the 16 aggregate rows (16, ncell) from
-    sorted points (see the module docstring for the rows)."""
-    ncell = offsets.numel() - 1
+    sorted points (see the module docstring for the rows); with (R,
+    ncell+1) offsets and (R, ncell) priors, (R, 16, ncell), robot r's runs
+    read from the flat payloads where its offsets say."""
+    single = offsets.dim() == 1
+    offsets = offsets.reshape(-1, offsets.shape[-1])
+    nrob, ncell = offsets.shape[0], offsets.shape[1] - 1
     dev = h.device
-    counts = offsets[1:] - offsets[:-1]
-    m = int(offsets[-1])
+    starts = offsets[:, :-1].reshape(-1)
+    ends = offsets[:, 1:].reshape(-1)
+    counts = ends - starts
+    m = int(counts.sum())
+    # the global cell (r * ncell + c) of every point that lies in a cell,
+    # in sorted order, and its position in the payloads
     ids = torch.repeat_interleave(
-        torch.arange(ncell, device=dev), counts, output_size=m)
-    h, v, inten, colf = h[:m], v[:m], inten[:m], colf[:m]
+        torch.arange(nrob * ncell, device=dev), counts, output_size=m)
+    run0 = torch.cumsum(counts, 0) - counts
+    pos = starts[ids] + torch.arange(m, device=dev) - run0[ids]
+    hp, vp = h[pos], v[pos]
 
-    out = torch.zeros((_STATS, ncell), dtype=torch.float32, device=dev)
-    out[12:] = _INF
+    out = torch.zeros((nrob, _STATS, ncell), dtype=torch.float32, device=dev)
+    out[:, 12:] = _INF
     if m == 0:
-        return out
+        return out[0] if single else out
     occ = counts > 0
     # run ends of empty cells point at a neighbour's row; `occ` masks them
-    first = torch.clamp(offsets[:-1], max=m - 1)
-    last = torch.clamp(offsets[1:] - 1, min=0)
-    zero = torch.zeros(ncell, dtype=torch.float32, device=dev)
+    n = h.shape[0]
+    first = torch.clamp(starts, max=n - 1)
+    last = torch.clamp(ends - 1, min=0)
+    zero = torch.zeros(nrob * ncell, dtype=torch.float32, device=dev)
     st_h = torch.where(occ, h[first], zero)
     st_v = torch.where(occ, v[first], zero)
 
+    elev0, var0 = elev0.reshape(-1), var0.reshape(-1)
     empty = elev0 == mcfg.invalid_elevation
     anchor_e = torch.where(empty, st_h, elev0)
     anchor_v = torch.where(empty, torch.clamp(st_v, min=mcfg.min_variance),
                            torch.clamp(var0, min=mcfg.min_variance))
     band = mcfg.mahalanobis_threshold * torch.sqrt(anchor_v)
-    inl = torch.abs(h - anchor_e[ids]) <= band[ids]
-    w = 1.0 / torch.clamp(v, min=_WEIGHT_EPS)
-    pz = torch.zeros_like(h)
+    inl = torch.abs(hp - anchor_e[ids]) <= band[ids]
+    w = 1.0 / torch.clamp(vp, min=_WEIGHT_EPS)
+    pz = torch.zeros_like(hp)
     W = zero.clone().index_add_(0, ids, torch.where(inl, w, pz))
-    WH = zero.clone().index_add_(0, ids, torch.where(inl, w * h, pz))
-    st_out = occ & ~inl[first]
+    WH = zero.clone().index_add_(0, ids, torch.where(inl, w * hp, pz))
+    # the start row's gate: its point is the first of its run
+    st_in = torch.abs(st_h - anchor_e) <= band
+    st_out = occ & ~st_in
 
-    out[0], out[1], out[2] = st_h, st_v, occ.to(torch.float32)
-    out[4], out[5], out[6] = W, WH, st_out.to(torch.float32)
+    rows = {0: st_h, 1: st_v, 2: occ.to(torch.float32), 4: W, 5: WH,
+            6: st_out.to(torch.float32)}
     if with_lowest:
-        out[11] = torch.where(occ, h[last] + 3.0 * v[last], zero)
+        rows[11] = torch.where(occ, h[last] + 3.0 * v[last], zero)
     if with_color:
-        hc = _has_color(colf, inten)
-        oc = st_out & hc[first]
-        out[7] = oc.to(torch.float32)
-        out[8] = torch.where(oc, st_v, zero)
-        out[9] = torch.where(oc, colf[first], zero)
-        out[10] = torch.where(oc, inten[first], zero)
+        ip, cp = inten[pos], colf[pos]
+        hc = _has_color(cp, ip)
+        st_c, st_i = colf[first], inten[first]
+        oc = st_out & _has_color(st_c, st_i)
+        rows[7] = oc.to(torch.float32)
+        rows[8] = torch.where(oc, st_v, zero)
+        rows[9] = torch.where(oc, st_c, zero)
+        rows[10] = torch.where(oc, st_i, zero)
         contrib = inl & hc
-        pinf = torch.full_like(h, _INF)
-        vc = torch.full((ncell,), _INF, device=dev).scatter_reduce_(
-            0, ids, torch.where(contrib, v, pinf), "amin")
-        tie = contrib & (v == vc[ids])
-        out[12] = vc
-        out[13] = torch.full((ncell,), _INF, device=dev).scatter_reduce_(
-            0, ids, torch.where(tie, colf, pinf), "amin")
-        out[14] = torch.full((ncell,), _INF, device=dev).scatter_reduce_(
-            0, ids, torch.where(tie, inten, pinf), "amin")
-    return out
+        pinf = torch.full_like(hp, _INF)
+        full = lambda: torch.full((nrob * ncell,), _INF, device=dev)
+        vc = full().scatter_reduce_(0, ids, torch.where(contrib, vp, pinf),
+                                    "amin")
+        tie = contrib & (vp == vc[ids])
+        rows[12] = vc
+        rows[13] = full().scatter_reduce_(
+            0, ids, torch.where(tie, cp, pinf), "amin")
+        rows[14] = full().scatter_reduce_(
+            0, ids, torch.where(tie, ip, pinf), "amin")
+    for k, row in rows.items():
+        out[:, k] = row.reshape(nrob, ncell)
+    return out[0] if single else out
 
 
 def fuse_stream_aggregate(offsets, h, v, inten, colf, elev0, var0, mcfg,
                           with_lowest: bool = True, with_color: bool = True):
-    """The 16 per-cell aggregate rows, (16, ncell) float32.
+    """The 16 per-cell aggregate rows, (16, ncell) float32, or (R, 16,
+    ncell) for (R, ncell+1) offsets and (R, ncell) priors: one launch for
+    every robot.
 
     CPU tensors run `fuse_stream_aggregate_plain`; CUDA tensors launch K1
     (csrc/fuse_stream.cu) and count the launch in
@@ -165,20 +221,25 @@ def fuse_stream_aggregate(offsets, h, v, inten, colf, elev0, var0, mcfg,
     if h.device.type != "cuda":
         raise ValueError(f"fuse_stream_aggregate: unsupported device "
                          f"{h.device}")
-    ncell = offsets.numel() - 1
+    nrob = offsets.shape[0] if offsets.dim() == 2 else 1
+    ncell = offsets.shape[-1] - 1
     f32 = torch.float32
     _build.check_tensors("fuse_stream_aggregate",
                 [h, offsets, v, inten, colf, elev0, var0],
                 [f32, torch.int64, f32, f32, f32, f32, f32])
-    if elev0.numel() != ncell or var0.numel() != ncell:
+    if elev0.numel() != nrob * ncell or var0.numel() != nrob * ncell:
         raise ValueError("fuse_stream_aggregate: prior planes must hold "
-                         "ncell = offsets.numel() - 1 cells")
-    out = torch.empty((_STATS, ncell), dtype=f32, device=h.device)
+                         "ncell = offsets.shape[-1] - 1 cells per robot")
+    if _STATS * nrob * ncell >= 2 ** 31:
+        raise ValueError("fuse_stream_aggregate: 16 * R * ncell must stay "
+                         "below 2^31")
+    lead = offsets.shape[:-1]
+    out = torch.empty(lead + (_STATS, ncell), dtype=f32, device=h.device)
     lib = _build.library()
     err = lib.gem_fuse_stream_aggregate(
         offsets.data_ptr(), h.data_ptr(), v.data_ptr(), inten.data_ptr(),
         colf.data_ptr(), elev0.data_ptr(), var0.data_ptr(), out.data_ptr(),
-        ncell, mcfg.invalid_elevation, mcfg.min_variance,
+        ncell, nrob, mcfg.invalid_elevation, mcfg.min_variance,
         mcfg.mahalanobis_threshold, int(with_lowest), int(with_color),
         _build.stream_of(h))
     _build.check(err, "gem_fuse_stream_aggregate")
@@ -193,27 +254,31 @@ def fuse_stream(state: MapState, cfg, batch: PointBatch,
                 with_lowest: bool = True,
                 with_color: bool = True) -> MapState:
     """Fuse a processed point batch into the map; also updates `lowest`
-    (when `with_lowest`) from the same sorted stream."""
+    (when `with_lowest`) from the same sorted stream.  A state and batch
+    with a leading robot axis fuse every robot in one K1 launch."""
     L = cfg.map.length
     sorted_pts = sort_points(batch, L * L, with_color)
-    s = fuse_stream_aggregate(*sorted_pts, state.elevation.reshape(-1),
-                              state.variance.reshape(-1), cfg.map,
-                              with_lowest, with_color)
+    lead = state.elevation.shape[:-2]
+    s = fuse_stream_aggregate(*sorted_pts, state.elevation.reshape(
+        lead + (L * L,)), state.variance.reshape(lead + (L * L,)), cfg.map,
+        with_lowest, with_color)
     return apply_aggregates(state, cfg, s, with_lowest, with_color)
 
 
 def apply_aggregates(state: MapState, cfg, s, with_lowest: bool = True,
                      with_color: bool = True) -> MapState:
-    """The dense posterior from the 16 aggregate rows `s` (line for line
-    gem_tpu's), and the lowest bound rolled to the geographic layout."""
+    """The dense posterior from the 16 aggregate rows `s`, (..., 16, L*L)
+    (line for line gem_tpu's), and the lowest bound rolled to the
+    geographic layout."""
     mcfg = cfg.map
-    L = mcfg.length
-    elev0f = state.elevation.reshape(-1)
-    var0f = state.variance.reshape(-1)
-    st_h, st_v, st_n = s[0], s[1], s[2]
-    W, WH, st_out = s[4], s[5], s[6]
-    oc_n, oc_v, oc_c, oc_i = s[7], s[8], s[9], s[10]
-    vc_in, col_in, int_in, low_sum = s[12], s[13], s[14], s[11]
+    shape = state.elevation.shape
+    elev0f = state.elevation.flatten(-2)
+    var0f = state.variance.flatten(-2)
+    row = lambda k: s[..., k, :]
+    st_h, st_v, st_n = row(0), row(1), row(2)
+    W, WH, st_out = row(4), row(5), row(6)
+    oc_n, oc_v, oc_c, oc_i = row(7), row(8), row(9), row(10)
+    vc_in, col_in, int_in, low_sum = row(12), row(13), row(14), row(11)
 
     empty = elev0f == mcfg.invalid_elevation
     var0c = torch.clamp(var0f, min=mcfg.min_variance)
@@ -233,8 +298,8 @@ def apply_aggregates(state: MapState, cfg, s, with_lowest: bool = True,
     new_elev = torch.where(overwrite, st_h, post_elev)
     new_var = torch.clamp(torch.where(overwrite, st_v, post_var),
                           min=mcfg.min_variance)
-    new_state = state.replace(elevation=new_elev.reshape(L, L),
-                              variance=new_var.reshape(L, L))
+    new_state = state.replace(elevation=new_elev.reshape(shape),
+                              variance=new_var.reshape(shape))
 
     if with_color:
         v_c = torch.where(overwrite,
@@ -245,16 +310,16 @@ def apply_aggregates(state: MapState, cfg, s, with_lowest: bool = True,
                                               | overwrite)
         new_state = new_state.replace(
             color=torch.where(color_update, best_color.to(torch.int32),
-                              state.color.reshape(-1)).reshape(L, L),
+                              state.color.flatten(-2)).reshape(shape),
             intensity=torch.where(color_update, best_inten,
-                                  state.intensity.reshape(-1)
-                                  ).reshape(L, L))
+                                  state.intensity.flatten(-2)
+                                  ).reshape(shape))
 
     if with_lowest:
         # storage-indexed per-cell bound -> geographic layout; unoccupied
         # cells decode to +inf
         low = torch.where(any_candidate, low_sum, _INF)
-        low_geo = roll_to_geo(low.reshape(L, L), state.start)
+        low_geo = roll_to_geo(low.reshape(shape), state.start)
         new_state = new_state.replace(
             lowest=torch.minimum(state.lowest, low_geo))
     return new_state

@@ -12,6 +12,10 @@ code, unchanged, so both packages partition the map identically.  Each
 `lax.sort` by a constant key there is a fixed permutation, written here as
 an `index_select` by the precomputed order; the reversed `lax.cummin` is
 flip -> `torch.cummin` -> flip.
+
+Robot axis: a state with planes (R, L, L) and per-robot `start` and
+`sensor_z`; the static tables index the last dims and the suffix minima
+run along each robot's own rays.
 """
 
 from __future__ import annotations
@@ -143,29 +147,32 @@ def _device_near_tables(L: int, R: int, cap: float, device: str):
 
 
 def _suffix_min_beyond(x):
-    """Per row, min over strictly later columns (+inf at the last): the
-    reversed exclusive cummin."""
-    suffix = torch.flip(torch.cummin(torch.flip(x, dims=(1,)), dim=1).values,
-                        dims=(1,))
-    return torch.cat([suffix[:, 1:], torch.full_like(suffix[:, :1],
-                                                     float("inf"))], dim=1)
+    """Along the last dim, min over strictly later entries (+inf at the
+    last): the reversed exclusive cummin."""
+    suffix = torch.flip(torch.cummin(torch.flip(x, dims=(-1,)),
+                                     dim=-1).values, dims=(-1,))
+    return torch.cat([suffix[..., 1:], torch.full_like(suffix[..., :1],
+                                                       float("inf"))],
+                     dim=-1)
 
 
 def _far_min_g(g, L: int, R: int, G: int):
-    """Slot-space far-field pipeline on an (L, L) geographic constraint
-    field: to ray-major slots, per-group min + exclusive suffix over
-    strictly-farther groups, back to cell order."""
+    """Slot-space far-field pipeline on a (..., L, L) geographic
+    constraint field: to ray-major slots, per-group min + exclusive suffix
+    over strictly-farther groups, back to cell order."""
     _, _, to_slots, to_cells, cap, nslots = _device_tables(
         L, R, G, str(g.device))
-    vals1 = torch.cat([g.reshape(-1),
-                       torch.full((nslots - L * L,), float("inf"),
-                                  device=g.device)])
-    g_slots = vals1.index_select(0, to_slots)
+    lead = g.shape[:-2]
+    vals1 = torch.cat([g.flatten(-2),
+                       torch.full(lead + (nslots - L * L,), float("inf"),
+                                  device=g.device)], dim=-1)
+    g_slots = vals1.index_select(-1, to_slots)
     nb = cap // G
-    bins = g_slots.reshape(R, nb, G).amin(dim=2)                 # (R, nb)
+    bins = g_slots.reshape(lead + (R, nb, G)).amin(dim=-1)     # (R, nb)
     beyond = _suffix_min_beyond(bins)
-    slot_beyond = beyond[:, :, None].expand(R, nb, G).reshape(-1)
-    return slot_beyond.index_select(0, to_cells).reshape(L, L)
+    slot_beyond = beyond[..., None].expand(lead + (R, nb, G)).reshape(
+        lead + (-1,))
+    return slot_beyond.index_select(-1, to_cells).reshape(lead + (L, L))
 
 
 def _far_pool(cfg) -> int:
@@ -186,13 +193,15 @@ def raytrace_cleanup(state: MapState, cfg, traver) -> MapState:
     R = cfg.num_rays()
     G = cfg.raytrace_group if cfg.raytrace_group > 0 else max(2, L // 250)
     dev = state.elevation.device
+    lead = state.elevation.shape[:-2]
     d, inv_d, _, _, _, _ = _device_tables(L, R, G, str(dev))
     inf = float("inf")
+    sensor_z = state.sensor_z[..., None, None]
 
     # --- constraint field g per geographic cell ---------------------------
     low = state.lowest
     seen = (low != cfg.lowest_reset) & (low != cfg.lowest_init) & (d > 0.0)
-    g = torch.where(seen, (low - state.sensor_z) * inv_d, inf)
+    g = torch.where(seen, (low - sensor_z) * inv_d, inf)
 
     # --- far field: suffix-min over the ray partition (p x p min-pool) -----
     p = _far_pool(cfg)
@@ -202,31 +211,32 @@ def raytrace_cleanup(state: MapState, cfg, traver) -> MapState:
         Lp = -(-L // p)
         pad = Lp * p - L
         g_pad = torch.nn.functional.pad(g, (0, pad, 0, pad), value=inf)
-        g_p = g_pad.reshape(Lp, p, Lp, p).amin(dim=(1, 3))
+        g_p = g_pad.reshape(lead + (Lp, p, Lp, p)).amin(dim=(-3, -1))
         Gp = cfg.raytrace_group if cfg.raytrace_group > 0 \
             else max(2, Lp // 250)
         min_g_p = _far_min_g(g_p, Lp, R, Gp)
-        min_g = min_g_p.repeat_interleave(p, dim=0).repeat_interleave(
-            p, dim=1)[:L, :L]
+        min_g = min_g_p.repeat_interleave(p, dim=-2).repeat_interleave(
+            p, dim=-1)[..., :L, :L]
 
     # --- near-field cone (resample formulation, static gathers) -----------
     R_n, S0, n_idx, n_in, (blo, bhi), n_cell, bshape = _device_near_tables(
         L, R, 192.0 if p == 1 else 96.0, str(dev))
-    low_blk = low[blo:bhi, blo:bhi].reshape(-1)
-    low_n = low_blk.index_select(0, n_idx).reshape(R_n, S0)
+    low_blk = low[..., blo:bhi, blo:bhi].flatten(-2)
+    low_n = low_blk.index_select(-1, n_idx).reshape(lead + (R_n, S0))
     seen_n = n_in & (low_n != cfg.lowest_reset) & (low_n != cfg.lowest_init)
     ks = torch.arange(1, S0 + 1, dtype=torch.float32, device=dev)
-    g_n = torch.where(seen_n, (low_n - state.sensor_z) / ks[None, :], inf)
+    g_n = torch.where(seen_n, (low_n - sensor_z) / ks, inf)
     beyond_n = _suffix_min_beyond(g_n)
-    near_vals = beyond_n.reshape(-1).index_select(0, n_cell).reshape(bshape)
+    near_vals = beyond_n.flatten(-2).index_select(-1, n_cell).reshape(
+        lead + bshape)
     min_g = min_g.clone()
-    min_g[blo:bhi, blo:bhi] = torch.minimum(min_g[blo:bhi, blo:bhi],
-                                            near_vals)
+    min_g[..., blo:bhi, blo:bhi] = torch.minimum(
+        min_g[..., blo:bhi, blo:bhi], near_vals)
 
     # --- deletion test in storage space -----------------------------------
     min_g_s = roll_to_storage(min_g, state.start)
-    d_s = roll_to_storage(d, state.start)
-    bound = state.sensor_z + d_s * min_g_s
+    d_s = roll_to_storage(d.expand(lead + (L, L)), state.start)
+    bound = sensor_z + d_s * min_g_s
     obstacle = (traver < cfg.obstacle_threshold) \
         & (state.elevation != cfg.invalid_elevation) & (d_s > 0.0)
     delete = obstacle & torch.isfinite(min_g_s) & (
@@ -236,5 +246,5 @@ def raytrace_cleanup(state: MapState, cfg, traver) -> MapState:
     return state.replace(
         elevation=torch.where(delete, cfg.invalid_elevation,
                               state.elevation),
-        lowest=torch.full((L, L), cfg.lowest_reset, dtype=torch.float32,
-                          device=dev))
+        lowest=torch.full(lead + (L, L), cfg.lowest_reset,
+                          dtype=torch.float32, device=dev))

@@ -11,6 +11,12 @@ giving dense (num_segments,) outputs; ids >= num_segments are dropped:
     start, min/max a running max restarted at run starts, and each run's
     end writes its segment.
 
+A fleet folds each robot's ids into one segment space (robot r's at
+r * S + id, each robot with its own dump segment), so one reduction serves
+every robot; the sort backend's sums then restart their cumsum at each
+robot (`rows`), as JAX's `vmap` of the sort backend sums each robot on its
+own.
+
 The fill rule is JAX's: when `fill` is the reduction identity (+-inf, or
 the int extremes) the reduction's own empty value stands; otherwise a
 count decides which segments are empty.
@@ -56,10 +62,14 @@ class SortedSegments:
     """Shared sorted view of one frame's point->cell assignment.
 
     Build once per frame; invalid points carry id == num_segments (they
-    sort to the tail and fall into the dummy segment)."""
+    sort to the tail and fall into the dummy segment).  With `rows` > 1
+    the ids are `rows` robots' folded ids, every robot's N points within
+    its own id range, so robot r's points sort to [r N, (r + 1) N) and
+    the sums' cumsum restarts there."""
 
-    def __init__(self, seg_ids, num_segments: int):
+    def __init__(self, seg_ids, num_segments: int, rows: int = 1):
         self.num_segments = num_segments
+        self.rows = rows
         self.ids, self.order = torch.sort(seg_ids.to(torch.int64),
                                           stable=True)
         prev = torch.cat([self.ids.new_full((1,), -1), self.ids[:-1]])
@@ -120,7 +130,8 @@ def sorted_segment_reduce(ss: SortedSegments, values, kind: str, fill,
     starts; exact, so order-free."""
     v = values if permuted else ss.permute(values)
     if kind == "sum":
-        c = torch.cumsum(v, 0, dtype=v.dtype)
+        c = torch.cumsum(v.reshape(ss.rows, -1), -1,
+                         dtype=v.dtype).reshape(-1)
         start_idx = torch.cummax(
             torch.where(ss.is_start, torch.arange(v.numel(),
                                                   device=v.device), 0),

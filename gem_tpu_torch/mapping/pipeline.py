@@ -28,6 +28,14 @@ no upload per frame, and captures into a CUDA graph.
 `ElevationPipeline` (`process`, `scan_steps`) and the fleet replay the
 step as CUDA graphs on the card (utils/graph.py, the counterpart of
 `jax.jit`) and call it directly on the CPU.
+
+Robot axis: `batched_step` is the step over a leading robot axis R on
+every leaf of the state and the frame (planes (R, L, L), points (R, P, 3),
+per-robot scalars (R,)), the counterpart of JAX's `vmap(step)`: each stage
+runs once for every robot, and on the card each kernel launches once with
+the robots as a grid axis.  `step` is `batched_step` at R = 1 (unsqueezed
+in, squeezed out), so robot r of a fleet is its single pipeline bit for
+bit by construction.
 """
 
 from __future__ import annotations
@@ -117,19 +125,21 @@ def init_pipeline_state(cfg, device) -> PipelineState:
 
 def _keyframe_scan(frame: Frame, M: int):
     """Subsampled raw scan of the keyframe frame, valid rows compacted to
-    the front: (points (M, 3), count)."""
-    P = frame.points.shape[0]
+    the front: (points (..., M, 3), count (...))."""
+    P = frame.points.shape[-2]
+    lead = frame.points.shape[:-2]
     dev = frame.points.device
     if M < P:
         idx = torch.round(torch.linspace(0, P - 1, M, device=dev)).long()
     else:
         idx = torch.arange(M, device=dev) % P
-    sel_ok = frame.valid[idx] & (torch.arange(M, device=dev) < P)
-    pos = torch.cumsum(sel_ok.to(torch.int32), 0) - 1
+    sel_ok = frame.valid[..., idx] & (torch.arange(M, device=dev) < P)
+    pos = torch.cumsum(sel_ok.to(torch.int32), -1) - 1
     tgt = torch.where(sel_ok, pos, M).long()        # row M: dump, cut off
-    pts = torch.zeros((M + 1, 3), dtype=torch.float32, device=dev)
-    pts.index_copy_(0, tgt, frame.points[idx].to(torch.float32))
-    return pts[:M], sel_ok.sum(dtype=torch.int32)
+    pts = torch.zeros(lead + (M + 1, 3), dtype=torch.float32, device=dev)
+    pts.scatter_(-2, tgt[..., None].expand(lead + (M, 3)),
+                 frame.points[..., idx, :].to(torch.float32))
+    return pts[..., :M, :], sel_ok.sum(-1, dtype=torch.int32)
 
 
 def _check_backend(fuse_backend: str) -> None:
@@ -141,16 +151,31 @@ def _check_backend(fuse_backend: str) -> None:
 def step(state: PipelineState, frame: Frame, cfg,
          fuse_backend: str = "stream") -> tuple[PipelineState, StepOutputs]:
     """One frame.  `state` is consumed (the submap rings update in place,
-    see global_map/submaps.py); use the returned state."""
+    see global_map/submaps.py); use the returned state.  This is
+    `batched_step` for one robot: the leaves are viewed with a robot axis
+    of 1 and the results viewed without it."""
+    one = lambda x: x.unsqueeze(0)
+    new, out = batched_step(tree_map(one, state), tree_map(one, frame), cfg,
+                            fuse_backend)
+    first = lambda x: x[0]
+    return tree_map(first, new), tree_map(first, out)
+
+
+def batched_step(state: PipelineState, frame: Frame, cfg,
+                 fuse_backend: str = "stream"
+                 ) -> tuple[PipelineState, StepOutputs]:
+    """One frame for every robot: `state` and `frame` carry a leading robot
+    axis R on every leaf, and so do the results.  `state` is consumed."""
     _check_backend(fuse_backend)
     track = frame.track_position.to(torch.float32)
     dev = track.device
+    R = track.shape[0]
 
     # --- odometry-jump bookkeeping (src/ElevationMapping.cpp:987-993) ------
     jump_odom = state.jump_odom
     if frame.loop_closure is not None:
         jump_odom = jump_odom | frame.loop_closure.to(torch.bool)
-    dz = torch.abs(track[2] - state.last_track_z)
+    dz = torch.abs(track[:, 2] - state.last_track_z)
     settled = jump_odom & (dz <= cfg.jump_z_tolerance)
     jump_count = torch.where(settled, state.jump_count + 1, state.jump_count)
     finish = ~settled & (jump_count >= cfg.jump_settle_count)
@@ -160,12 +185,12 @@ def step(state: PipelineState, frame: Frame, cfg,
 
     # --- window relocation: both branches, the taken one selected --------
     anchored = re_anchor(state.map, cfg.map, track,
-                         track[2] - state.last_track_z)
-    anchored = anchored.replace(sensor_z=track[2].clone())
+                         track[:, 2] - state.last_track_z)
+    anchored = anchored.replace(sensor_z=track[:, 2].clone())
     moved, info = move(state.map, cfg.map, track)
     map_state = tree_select(use_jump, anchored, moved)
-    shed = tree_select(use_jump, empty_shed(cfg, dev), info.shed)
-    index_shift = torch.where(use_jump, 0, info.index_shift)
+    shed = tree_select(use_jump, empty_shed(cfg, dev, (R,)), info.shed)
+    index_shift = torch.where(use_jump[:, None], 0, info.index_shift)
 
     # --- point processing ---------------------------------------------------
     sensor_jac, c_sb_t, p_bm_t, b_skew = jacobian_ingredients(
@@ -173,9 +198,10 @@ def step(state: PipelineState, frame: Frame, cfg,
     stream = fuse_backend == "stream"
     batch, lowest = process_points(
         map_state, cfg, frame.points, frame.intensity, frame.valid,
-        frame.transform, frame.t_map_base[2].to(torch.float32), sensor_jac,
-        frame.pose_cov[3:, 3:].to(torch.float32), c_sb_t, p_bm_t, b_skew,
-        image=frame.image, colors=frame.colors, compute_lowest=not stream)
+        frame.transform, frame.t_map_base[:, 2].to(torch.float32),
+        sensor_jac, frame.pose_cov[:, 3:, 3:].to(torch.float32), c_sb_t,
+        p_bm_t, b_skew, image=frame.image, colors=frame.colors,
+        compute_lowest=not stream)
     map_state = map_state.replace(lowest=lowest)
 
     # --- fuse (K1 on the stream path, K3 on the pallas path) ----------------
@@ -202,18 +228,18 @@ def step(state: PipelineState, frame: Frame, cfg,
     else:
         L = cfg.map.length
         f32 = dict(dtype=torch.float32, device=dev)
-        feats = FeatureMaps(slope=torch.zeros((L, L), **f32),
-                            rough=torch.zeros((L, L), **f32),
+        feats = FeatureMaps(slope=torch.zeros((R, L, L), **f32),
+                            rough=torch.zeros((R, L, L), **f32),
                             traver=map_state.traver,
-                            normal_z=torch.ones((L, L), **f32),
+                            normal_z=torch.ones((R, L, L), **f32),
                             neighbor_count=torch.zeros(
-                                (L, L), dtype=torch.int32, device=dev))
+                                (R, L, L), dtype=torch.int32, device=dev))
 
     # --- submap shed accumulation ------------------------------------------
     # no shed during the jump nor on the frame it settles (JumpFlag,
     # src/ElevationMapping.cpp:630, 716, 766)
     suppress = use_jump | finish
-    shed = dataclasses.replace(shed, valid=shed.valid & ~suppress)
+    shed = dataclasses.replace(shed, valid=shed.valid & ~suppress[:, None])
     submaps = state.submaps
     if cfg.enable_submaps:
         submaps = sm.append_shed(submaps, shed)
@@ -229,10 +255,11 @@ def step(state: PipelineState, frame: Frame, cfg,
     # --- keyframe finalize (src/ElevationMapping.cpp:624-627) ---------------
     last_keyframe_xy = state.last_keyframe_xy
     if cfg.enable_submaps:
-        dist = torch.linalg.vector_norm(track[:2] - state.last_keyframe_xy)
+        dist = torch.linalg.vector_norm(track[:, :2] - state.last_keyframe_xy,
+                                        dim=-1)
         keyframe_due = dist >= cfg.submap.keyframe_distance
         grid_pts = sm.grid_to_points(map_state, cfg, feats.traver)
-        pose = torch.cat([track, frame.pose_quat.to(torch.float32)])
+        pose = torch.cat([track, frame.pose_quat.to(torch.float32)], dim=-1)
         # SubMap payload (src/ElevationMapping.cpp:666-681): orthomosaic
         # snapshot + subsampled raw keyframe scan
         ortho = kf_pts = kf_count = None
@@ -244,21 +271,21 @@ def step(state: PipelineState, frame: Frame, cfg,
         submaps = sm.finalize_submap(submaps, grid_pts, pose, ortho=ortho,
                                      kf_points=kf_pts, kf_count=kf_count,
                                      when=keyframe_due)
-        last_keyframe_xy = torch.where(keyframe_due, track[:2],
+        last_keyframe_xy = torch.where(keyframe_due[:, None], track[:, :2],
                                        last_keyframe_xy)
     else:
-        keyframe_due = torch.zeros((), dtype=torch.bool, device=dev)
+        keyframe_due = torch.zeros((R,), dtype=torch.bool, device=dev)
 
     new_state = PipelineState(
         map=map_state, motion=motion, submaps=submaps,
         jump_odom=jump_odom, jump_count=jump_count,
-        last_track_z=track[2].clone(), last_keyframe_xy=last_keyframe_xy,
+        last_track_z=track[:, 2].clone(), last_keyframe_xy=last_keyframe_xy,
         frame_idx=state.frame_idx + 1)
     metrics = {
-        "points_valid": batch.valid.sum(dtype=torch.int32),
-        "cells_fused": (map_state.elevation
-                        != cfg.map.invalid_elevation).sum(dtype=torch.int32),
-        "shed_count": shed.valid.sum(dtype=torch.int32),
+        "points_valid": batch.valid.sum(-1, dtype=torch.int32),
+        "cells_fused": (map_state.elevation != cfg.map.invalid_elevation
+                        ).sum((-2, -1), dtype=torch.int32),
+        "shed_count": shed.valid.sum(-1, dtype=torch.int32),
         "index_shift": index_shift,
         "var_update": var_update,
     }

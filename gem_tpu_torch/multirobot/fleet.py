@@ -6,16 +6,16 @@ same tree as the JAX package's, so `state_from_numpy` / `state_to_numpy`
 carry a JAX fleet state across unchanged.
 
 JAX's `fleet_step` is `jax.vmap` of `step`, and `FleetPipeline` replays
-it as `jax.jit(fleet_step)`.  Here `fleet_step` runs each robot's `step`
-on views of the stacked state, so on the card that is K1 and K2 (stream)
-or 5 x K3 and K2 (pallas) once per robot and frame; the kernels take no
-robot axis yet.  `step` reads nothing to the host, so `FleetPipeline`
-captures the whole fleet frame, every robot's step and its write-back,
-as one CUDA graph (utils/graph.py).
+it as `jax.jit(fleet_step)`.  Here `fleet_step` is one call of the step
+over the leading robot axis (mapping/pipeline.py `batched_step`, of which
+the single-robot `step` is the R = 1 case): every stage runs once for all
+robots, and on the card each kernel launches once per fleet frame with the
+robots as a grid axis, K1 and K2 (stream) or 5 x K3 and K2 (pallas).  It
+reads nothing to the host, so `FleetPipeline` captures the fleet frame as
+one CUDA graph (utils/graph.py).
 
-`step` consumes its state: the submap rings update in place, which writes
-through the views into the stack; every leaf that `step` replaces instead
-is copied back into the stack (`write_back`).
+JAX's fleet runs `step`'s defaults, the segment fuse and (on the CPU) the
+XLA features; the port's fleet defaults to the stream fuse (K1) and K2.
 
 JAX's mesh functions (`make_mesh`, `shard_fleet`, `sharded_fleet_step`) have
 their counterparts in multirobot/distributed.py: one process per card,
@@ -27,14 +27,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import torch
-
-from gem_tpu_torch.mapping.pipeline import (PipelineState,
+from gem_tpu_torch.mapping.pipeline import (PipelineState, batched_step,
                                             init_pipeline_state,
-                                            stack_frames,  # noqa: F401
-                                            step)
+                                            stack_frames)  # noqa: F401
 from gem_tpu_torch.utils.device import resolve_device
-from gem_tpu_torch.utils.graph import DeviceProgram, write_back
+from gem_tpu_torch.utils.graph import DeviceProgram
 from gem_tpu_torch.utils.tree import tree_map
 
 
@@ -61,17 +58,12 @@ def make_fleet_state(cfg, n_robots: int, device="cuda") -> PipelineState:
 def fleet_step(state: PipelineState, frames, cfg,
                fuse_backend: str = "stream"):
     """One frame for every robot: `state` and `frames` carry a leading robot
-    axis.  Robot r's result is exactly what `step` gives for robot r alone.
-    The stacked `state` is updated in place and returned, with the robots'
-    StepOutputs stacked."""
-    outs = []
-    for r in range(state.frame_idx.shape[0]):
-        views = tree_map(lambda x: x[r], state)
-        new, out = step(views, tree_map(lambda x: x[r], frames), cfg,
+    axis, and the step runs once over it.  Robot r's result is exactly what
+    `step` gives for robot r alone.  `state` is consumed (its submap rings
+    update in place); returns the new stacked state and the robots'
+    StepOutputs, stacked."""
+    return batched_step(state, frames, fleet_effective_config(cfg),
                         fuse_backend)
-        write_back(views, new)
-        outs.append(out)
-    return state, tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
 
 
 class FleetPipeline:

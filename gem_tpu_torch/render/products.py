@@ -114,7 +114,8 @@ def inflate_costmap(costmap, radius_cells, cost_scaling_factor: float = 0.0,
 
 def orthomosaic(state: MapState, cfg, traver=None):
     """(L, L, 3) uint8 top-down RGB, geographic-aligned; empty cells black
-    (`cfg` is a MapConfig)."""
+    (`cfg` is a MapConfig).  A state with a robot axis gives (R, L, L, 3),
+    each robot rolled by its own start."""
     valid = state.elevation != cfg.invalid_elevation
     if traver is not None:
         valid = valid & (traver != cfg.invalid_traversability)

@@ -39,9 +39,19 @@ def tree_leaves(tree, prefix: str = "") -> dict:
     return {} if tree is None else {prefix[:-1]: tree}
 
 
+def lead(pred, x):
+    """`pred` with trailing unit dims, so that it broadcasts against `x`
+    along `x`'s leading dims (a (R,) robot predicate over (R, ...) leaves;
+    a () predicate is unchanged in effect)."""
+    return pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim()))
+
+
 def tree_select(pred, a, b):
     """`torch.where(pred, a, b)` leaf by leaf over two trees of one
     structure: the select that stands for `lax.cond` on a device scalar.
-    A leaf that is the same tensor in both trees is kept, not copied."""
-    return tree_map(lambda x, y: x if x is y else torch.where(pred, x, y),
-                    a, b)
+    `pred` is () or carries the trees' leading robot axis, (R,), and is
+    broadcast over each leaf's trailing dims (the select that JAX's cond
+    becomes under `vmap`).  A leaf that is the same tensor in both trees
+    is kept, not copied."""
+    return tree_map(lambda x, y: x if x is y
+                    else torch.where(lead(pred, x), x, y), a, b)

@@ -346,6 +346,225 @@ def test_k3_rejects_bad_shapes(cuda):
         sst.segment_stats_sorted(ids, sv.double(), mv, xv, 64)
 
 
+# --- the robot grid axis ------------------------------------------------------
+
+
+def _robot_batch(L, counts, device, seed=0, exact=False):
+    """An (R, P) point batch whose robot r has counts[r] valid points
+    (the rest padding), with P = max(counts) + 5; `exact`: heights on a
+    1/16 m grid and power-of-two variances, so K1's sums are exact."""
+    rng = np.random.default_rng(seed)
+    R, P = len(counts), max(counts) + 5
+    valid = np.arange(P)[None, :] < np.asarray(counts)[:, None]
+    cells = rng.integers(0, L * L, (R, P))
+    if exact:
+        h = np.clip(np.round(rng.normal(size=(R, P)) * 5) / 16, -1, 1) \
+            + (rng.random((R, P)) < 0.1) * 2.5
+        v = 2.0 ** -rng.integers(4, 7, (R, P))
+    else:
+        h = rng.normal(size=(R, P)) * 2
+        v = rng.uniform(1e-4, 0.3, (R, P))
+    col = np.where(rng.random((R, P)) < 0.5,
+                   rng.integers(1, 1 << 24, (R, P)), 0)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, dt)).to(device)
+    return PointBatch(
+        xy=torch.zeros((R, P, 2), device=device), height=t(h, np.float32),
+        variance=t(v, np.float32),
+        cell=t(np.where(valid, cells, L * L), np.int32),
+        color=t(col, np.int32),
+        intensity=t(np.where(col != 0, rng.integers(1, 4, (R, P)), 0),
+                    np.float32),
+        valid=t(valid, bool))
+
+
+def _priors(L, R, device, seed=0):
+    rng = np.random.default_rng(seed)
+    occ = rng.random((R, L * L)) < 0.5
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return (t(np.where(occ, rng.normal(size=(R, L * L)) * 0.3, -10.0)),
+            t(np.where(occ, rng.uniform(1e-4, 0.05, (R, L * L)), -10.0)))
+
+
+def _robot(batch, r):
+    return PointBatch(**{f.name: getattr(batch, f.name)[r]
+                         for f in dataclasses.fields(batch)})
+
+
+def _k1_robots_check(cfg, batch, elev0, var0, exact):
+    """K1 over the robot axis against its plain version and against each
+    robot's own single launch (bitwise); one launch for the fleet."""
+    L = cfg.map.length
+    srt = fs.sort_points(batch, L * L)
+    before = fs.fuse_stream_aggregate.launches
+    k = fs.fuse_stream_aggregate(*srt, elev0, var0, cfg.map)
+    assert fs.fuse_stream_aggregate.launches == before + 1
+    p = fs.fuse_stream_aggregate_plain(*srt, elev0, var0, cfg.map)
+    torch.cuda.synchronize()
+    R = elev0.shape[0]
+    assert tuple(k.shape) == (R, 16, L * L)
+    if exact:
+        assert torch.equal(k, p)
+    else:
+        exact_rows = [r for r in range(16) if r not in (4, 5)]
+        assert torch.equal(k[:, exact_rows], p[:, exact_rows])
+        has = p[:, 4] > 0
+        rel = (k[:, 4:6] - p[:, 4:6]).abs() \
+            / p[:, 4:5].abs().clamp(min=1e-30)
+        assert float(rel.amax(1)[has].max()) <= 1e-5
+    for r in range(R):
+        one = fs.fuse_stream_aggregate(
+            *fs.sort_points(_robot(batch, r), L * L), elev0[r], var0[r],
+            cfg.map)
+        assert torch.equal(k[r].view(torch.int32), one.view(torch.int32)), r
+    return k
+
+
+def test_k1_robot_axis_on_card(cuda):
+    """Three robots with uneven valid counts at L = 50 (2500 cells, not a
+    multiple of K1's 256-cell tile): against the plain version (selection
+    rows bitwise, W and WH within 1e-5) and robot by robot against single
+    launches, bitwise; R = 1 is bitwise the launch without a robot axis."""
+    L = 50
+    cfg = benchmark_config(length=L)
+    batch = _robot_batch(L, [3001, 17, 2203], cuda, seed=5)
+    elev0, var0 = _priors(L, 3, cuda, seed=6)
+    _k1_robots_check(cfg, batch, elev0, var0, exact=False)
+    one = _robot(batch, 0)
+    lead = PointBatch(**{f.name: getattr(one, f.name)[None]
+                         for f in dataclasses.fields(one)})
+    a = fs.fuse_stream_aggregate(*fs.sort_points(lead, L * L), elev0[:1],
+                                 var0[:1], cfg.map)
+    b = fs.fuse_stream_aggregate(*fs.sort_points(one, L * L), elev0[0],
+                                 var0[0], cfg.map)
+    assert torch.equal(a[0].view(torch.int32), b.view(torch.int32))
+
+
+def test_k1_robot_axis_runs_on_robot_edges_on_card(cuda):
+    """Robot 0's last tile and robot 1's first tile both hold runs longer
+    than K1's short-run limit (16 points), at L = 50, on exact-sum data:
+    every row equals the plain version's and each robot's single launch."""
+    L = 50
+    S = L * L
+    cfg = benchmark_config(length=L)
+    batch = _robot_batch(L, [4000, 4000, 900], cuda, seed=9, exact=True)
+    cells = batch.cell.cpu().numpy()
+    tail = np.repeat([S - 1, S - 2, S - 40, S - 196, 2304],
+                     [700, 300, 17, 90, 400])
+    head = np.repeat([0, 1, 255, 256], [800, 19, 600, 33])
+    cells[0, :len(tail)] = tail
+    cells[1, :len(head)] = head
+    batch = dataclasses.replace(batch, cell=torch.from_numpy(
+        np.where(batch.valid.cpu().numpy(), cells, S).astype(np.int32)
+    ).to(cuda))
+    elev0, var0 = _priors(L, 3, cuda, seed=10)
+    _k1_robots_check(cfg, batch, elev0, var0, exact=True)
+
+
+def test_k2_robot_axis_on_card(cuda):
+    """K2 over three robots' planes with their own starts at L = 257 (not
+    a multiple of the 32 x 8 tile): all five planes bitwise the plain
+    version's and each robot's single launch; one launch for the fleet."""
+    L, R = 257, 3
+    rng = np.random.default_rng(4)
+    cfg = benchmark_config(length=L)
+    g = np.arange(L) * cfg.map.resolution
+    elev = (0.4 * np.sin(g[:, None] / 1.7) + 0.2 * g[None, :]
+            + 0.02 * rng.standard_normal((R, L, L))).astype(np.float32)
+    elev[rng.random((R, L, L)) >= np.array([1.0, 0.6, 0.2])[:, None, None]] \
+        = cfg.map.invalid_elevation
+    starts = torch.tensor([[0, 0], [256, 3], [100, 200]], dtype=torch.int32)
+    m = init_map_state(cfg.map, cuda)
+    ms = type(m)(**{f.name: getattr(m, f.name).unsqueeze(0).repeat(
+        (R,) + (1,) * getattr(m, f.name).dim())
+        for f in dataclasses.fields(m)})
+    ms = ms.replace(elevation=torch.from_numpy(elev).to(cuda),
+                    start=starts.to(cuda))
+    before = ft.plane_fit_features.launches
+    k = ft.plane_fit_features(ms, cfg.map)
+    assert ft.plane_fit_features.launches == before + 1
+    p = ft.compute_features(ms, cfg.map)
+    torch.cuda.synchronize()
+    for key in ("neighbor_count", "slope", "rough", "traver", "normal_z"):
+        assert torch.equal(getattr(k, key), getattr(p, key)), key
+    for r in range(R):
+        one = ft.plane_fit_features(
+            m.replace(elevation=ms.elevation[r].contiguous(),
+                      start=ms.start[r].contiguous()), cfg.map)
+        for key in ("neighbor_count", "slope", "rough", "traver",
+                    "normal_z"):
+            assert torch.equal(getattr(k, key)[r], getattr(one, key)), key
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_k3_robot_axis_on_card(cuda, dtype):
+    """K3 over three robots' sorted ids (S = 5000, not a multiple of the
+    2048-segment block), uneven valid counts, and runs of 40-900 points at
+    the end of robot 0's segments and the start of robot 1's: mins and
+    maxs bitwise the plain version's, sums within 1e-5 of their terms'
+    magnitudes, and each robot bitwise its single launch; one launch per
+    four columns for the fleet."""
+    rng = np.random.default_rng(12)
+    S, n, R = 5000, 6144, 3
+    ids = np.full((R, n), S)
+    ids[0, :3000] = np.repeat([S - 1, S - 2, 4095, 4096, 2047],
+                              [900, 41, 500, 800, 759])
+    ids[1, :2500] = np.repeat([0, 1, 2047, 2048], [850, 40, 700, 910])
+    ids[2, :1234] = rng.integers(0, S, 1234)
+    ids = np.sort(ids, axis=1)
+    t_ids = torch.from_numpy(ids).to(cuda, dtype)
+    cols = [torch.from_numpy(rng.normal(size=(f, R, n)).astype(np.float32))
+            .to(cuda) for f in (2, 2, 1)]
+    before = sst.segment_stats_sorted.launches
+    got = sst.segment_stats_sorted(t_ids, *cols, S, with_spill=False)
+    assert sst.segment_stats_sorted.launches == before + 2
+    want = sst.segment_stats_sorted_plain(t_ids, *cols, S)
+    mag = sst.segment_stats_sorted_plain(t_ids, cols[0].abs(), *cols[1:],
+                                         S)[0]
+    torch.cuda.synchronize()
+    assert tuple(got[0].shape) == (2, R, S)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert bool(((got[0] - want[0]).abs() <= 1e-5 * mag).all())
+    for r in range(R):
+        one = sst.segment_stats_sorted(
+            t_ids[r].contiguous(), *[c[:, r].contiguous() for c in cols], S,
+            with_spill=False)
+        for a, b in zip(got[:3], one[:3]):
+            assert torch.equal(a[:, r].view(torch.int32),
+                               b.view(torch.int32)), r
+
+
+def test_fleet_pallas_on_card_equals_single_pipelines(cuda):
+    """The pallas fleet (5 x K3 and K2 per fleet frame) against single
+    ElevationPipelines on the card: every leaf bitwise."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.multirobot.fleet import (fleet_effective_config,
+                                                fleet_step, make_fleet_state,
+                                                stack_frames)
+    from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = benchmark_config(length=64, max_points=4096)
+    n, T = 3, 4
+    streams = [[f for f, _, _ in synthetic_frames(
+        cfg, T, n_points=900 + 1100 * r, speed=0.3 + 0.2 * r, seed=r,
+        max_range=3.0, device=cuda)] for r in range(n)]
+    fleet = make_fleet_state(cfg, n, device=cuda)
+    k3 = sst.segment_stats_sorted.launches
+    for t in range(T):
+        fleet, _ = fleet_step(fleet, stack_frames(
+            [streams[r][t] for r in range(n)]), cfg, fuse_backend="pallas")
+    assert sst.segment_stats_sorted.launches - k3 == 5 * T
+    for r in range(n):
+        pipe = ElevationPipeline(fleet_effective_config(cfg), device=cuda,
+                                 fuse_backend="pallas")
+        for f in streams[r]:
+            pipe.process(f)
+        a = tree_leaves(pipe.state)
+        b = tree_leaves(tree_map(lambda x: x[r], fleet))
+        for key in a:
+            assert torch.equal(a[key], b[key]), (r, key)
+
+
 @pytest.mark.parametrize("backend", ["pallas", "segment", "sort"])
 def test_fuse_backends_on_card_match_cpu(cuda, backend):
     from gem_tpu_torch.io.replay import synthetic_frames
@@ -386,8 +605,8 @@ def test_fuse_backends_on_card_match_cpu(cuda, backend):
 
 def test_fleet_step_on_card_equals_single_pipelines(cuda):
     """Four robots with uneven streams through `fleet_step` (stream path:
-    K1 and K2 once per robot and frame) against four ElevationPipelines on
-    the card: every leaf bitwise."""
+    K1 and K2 once per fleet frame, the robots a grid axis) against four
+    ElevationPipelines on the card: every leaf bitwise."""
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
     from gem_tpu_torch.multirobot.fleet import (fleet_effective_config,
@@ -409,8 +628,8 @@ def test_fleet_step_on_card_equals_single_pipelines(cuda):
     for t in range(T):
         fleet, _ = fleet_step(fleet, stack_frames(
             [streams[r][t] for r in range(n)]), cfg)
-    assert fs.fuse_stream_aggregate.launches - k1 == n * T
-    assert ft.plane_fit_features.launches - k2 == n * T
+    assert fs.fuse_stream_aggregate.launches - k1 == T
+    assert ft.plane_fit_features.launches - k2 == T
     for r in range(n):
         for f in streams[r]:
             pipes[r].process(f)
