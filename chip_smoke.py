@@ -82,8 +82,21 @@ host's launch overhead is left out):
      4-robot flagship fleet, FleetPipeline against eager `fleet_step`,
      bitwise, with both fleet-frame medians, and each alone under the
      profiler (device events and ms per fleet frame, busy share, peak
-     memory) beside the single step's; and whether `torch.cond` captures
-     into a graph (a child process).
+     memory) beside the single step's.  Then the branches (utils/control.py,
+     the port's `lax.cond`: a single robot's four conds are CUDA-graph IF
+     nodes): the route in use (torch's version, whether it binds
+     `begin_capture_to_if_node`, a small cond and when captured, counted
+     and replayed both ways); what an untaken branch costs, as IF nodes
+     and as the select route's masked forms (each in a graph of 20
+     calls); three drives, graph vs eager step bitwise after every frame
+     under set_sync_debug_mode("error"), each frame's device events and
+     ms from one profile cut by marker kernels: the benchmark preset
+     (phase 8's frames, jump at 12), the flagship width with every branch
+     taken (a jump, keyframes every 4 m, the 8-frame staging ring
+     filling, raytrace every third frame) and the kitti preset
+     (orthomosaics and keyframe scans stored); in each, every frame's
+     events less the kernel, copy and fill nodes of the IF bodies it took
+     is one number, so an untaken body launches nothing.
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
 step and fleet-frame medians, one JSON line of per-kernel results (its
@@ -2043,28 +2056,85 @@ def profiled_drive(run_frame, frames, lo=20):
         - base
 
 
-def masked_branch_ms(cfg, state, frame):
-    """Device ms (CUDA graph of 20 calls) of what the selects add to every
-    frame where their branch is not taken, at `state`: re_anchor and the
-    select of its planes against the move's, the masked staging flush, and
-    the masked keyframe finalize with its grid snapshot.  With a False
-    predicate each leaves the store as it was, so the calls repeat."""
-    from gem_tpu_torch.core.move import move, re_anchor
+def graphs_in_turns(fns, reps=20, rounds=6):
+    """{name: median ms per call} of each closure: one eager call, then
+    `reps` calls captured in one CUDA graph each; the graphs replayed in
+    turns (order reversed every round) under CUDA events."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    times = {k: [] for k in graphs}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    for r in range(rounds):
+        for k in (list(graphs) if r % 2 == 0 else list(graphs)[::-1]):
+            t0.record()
+            graphs[k].replay()
+            t1.record()
+            torch.cuda.synchronize()
+            times[k].append(t0.elapsed_time(t1) / reps)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def branch_costs_ms(cfg, state, frame):
+    """Device ms per call (a CUDA graph of 20 calls, the graphs timed in
+    turns) of what a frame pays for a branch it does not take, at
+    `state`.  As IF nodes (the graph
+    route of utils/control.py, what the step captures now): the jump
+    cond's cost on a move frame (its graph less the move's alone), an
+    untaken staging flush, an untaken keyframe finalize with its grid
+    snapshot; `move` is the move alone.  As the select route's masked
+    forms, which run both sides: re_anchor
+    and the select of its planes against the move's, the masked flush,
+    the masked finalize.  With a False predicate each leaves the store
+    as it was, so the calls repeat."""
+    from gem_tpu_torch.core.move import empty_shed, move, re_anchor
     from gem_tpu_torch.global_map import submaps as sm
+    from gem_tpu_torch.utils import control
     from gem_tpu_torch.utils.tree import tree_select
 
-    no = torch.zeros((), dtype=torch.bool, device=frame.points.device)
+    dev = frame.points.device
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
     track = frame.track_position
     ms, store = state.map, state.submaps
     moved, _ = move(ms, cfg.map, track)
     pose = torch.cat([track, frame.pose_quat])
-    return {
-        "jump_select": graph_ms(lambda: tree_select(no, re_anchor(
-            ms, cfg.map, track, track[2] - state.last_track_z), moved), 20),
-        "staging_flush": graph_ms(lambda: sm.flush_staging(store, no), 20),
-        "keyframe_finalize": graph_ms(lambda: sm.finalize_submap(
-            store, sm.grid_to_points(ms, cfg, ms.traver), pose, when=no),
-            20)}
+
+    def move_side(m):
+        new, info = move(m, cfg.map, track)
+        return new, info.shed, info.index_shift
+
+    def jump_side(m):
+        return (re_anchor(m, cfg.map, track, track[2] - state.last_track_z),
+                empty_shed(cfg, dev), torch.zeros(2, dtype=torch.int32,
+                                                  device=dev))
+
+    def finalize(store, when=None):
+        return sm.finalize_submap(store, sm.grid_to_points(ms, cfg,
+                                                           ms.traver),
+                                  pose, when=when)
+
+    ms_ = graphs_in_turns({
+        "move": lambda: move_side(ms),
+        "jump_cond": lambda: control.cond(yes, move_side, jump_side, ms),
+        "if_staging_flush": lambda: control.when(no, sm.flush_staging,
+                                                 store),
+        "if_keyframe_finalize": lambda: control.when(no, finalize, store),
+        "masked_jump_select": lambda: tree_select(no, re_anchor(
+            ms, cfg.map, track, track[2] - state.last_track_z), moved),
+        "masked_staging_flush": lambda: sm.flush_staging(store, no),
+        "masked_keyframe_finalize": lambda: finalize(store, no)})
+    ms_["if_jump"] = ms_.pop("jump_cond") - ms_["move"]
+    return ms_
 
 
 def phase_graph(dev, frames):
@@ -2078,8 +2148,8 @@ def phase_graph(dev, frames):
         frame 0: frames always carry `loop_closure`); the median step of
         each over frames 5-29;
       * the cost of copying a frame's outputs out of the graph, as a
-        replay does, and the device time of what the untaken selects add
-        (`masked_branch_ms`);
+        replay does, and the device time of an untaken branch
+        (`branch_costs_ms`);
       * each alone on fresh state, frames 20-29 under torch.profiler:
         device-busy share of wall time, device events and device ms per
         frame, and the peak memory each drive adds;
@@ -2127,7 +2197,7 @@ def phase_graph(dev, frames):
         copy_ms = cuda_ms(lambda: tree_map(torch.clone, got), 20)
         out_bytes = sum(t.numel() * t.element_size()
                         for t in tree_leaves(got).values())
-        masked = masked_branch_ms(cfg, state, jumped[-1])
+        costs = branch_costs_ms(cfg, state, jumped[-1])
         del pipe, state, got, ref
 
         held = {}
@@ -2178,8 +2248,8 @@ def phase_graph(dev, frames):
               f"step_ms_median(5..29) graph={g_ms:.3f} eager="
               f"{e_ms:.3f} first_frame_ms graph={t_graph[0]:.1f} eager="
               f"{t_eager[0]:.1f} output_copy_ms={copy_ms:.4f} "
-              f"({out_bytes} bytes) masked_branch_device_ms="
-              f"{json.dumps({k: round(v, 4) for k, v in masked.items()})} "
+              f"({out_bytes} bytes) untaken_branch_device_ms="
+              f"{json.dumps({k: round(v, 4) for k, v in costs.items()})} "
               f"profile(frames 20..29) graph: busy_share={g_busy[0]:.4f} "
               f"device_events_per_frame={g_busy[1]:.1f} device_ms_per_frame="
               f"{g_busy[2]:.3f} peak_bytes={g_busy[3]}; eager: busy_share="
@@ -2192,38 +2262,194 @@ def phase_graph(dev, frames):
     return out
 
 
-COND_PROBE = r"""
-import torch
-pred = torch.ones((), dtype=torch.bool, device="cuda")
-x = torch.arange(4.0, device="cuda")
-torch.cond(pred, lambda t: t * 2, lambda t: t + 1, (x,))
-torch.cuda.synchronize()
-g = torch.cuda.CUDAGraph()
-try:
-    with torch.cuda.graph(g):
-        y = torch.cond(pred, lambda t: t * 2, lambda t: t + 1, (x,))
-    g.replay()
-    pred.fill_(False)
-    g.replay()
+def phase_cond_route(dev):
+    """Phase 13, the conditional-node route of utils/control.py: torch's
+    version and whether it binds `begin_capture_to_if_node` (this package
+    does not need it: csrc/graph_cond.cu makes the IF nodes); a cond (with
+    a merge fixup) and a when captured into one graph, its nodes counted,
+    replayed with the predicate True and False against the eager calls."""
+    from gem_tpu_torch.utils import control
+
+    a = torch.arange(8.0, device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    store = {"n": torch.zeros((), dtype=torch.int32, device=dev)}
+    # the true side returns its operand: the merge needs a third IF node
+    sides = (lambda v: (v * 2, v), lambda v: (v * 3, torch.cumsum(v, 0)))
+
+    def bump(s, when=None):
+        if when is None:
+            s["n"].add_(1)
+            return s
+        return {"n": torch.where(when, s["n"] + 1, s["n"])}
+
+    control.cond(pred, *sides, a)          # the eager warm-up
+    control.when(pred, bump, store)
     torch.cuda.synchronize()
-    print("captures, replay with pred False:", y.tolist())
-except RuntimeError as e:
-    print("fails:", type(e).__name__, str(e).splitlines()[0])
-"""
+    control.IF_NODES.clear()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, pool=torch.cuda.graph_pool_handle()):
+        got = tuple(t + 0 for t in control.cond(pred, *sides, a))
+        control.when(pred, bump, store)
+    nodes = control.count_graph_nodes(g)
+    bodies = list(control.IF_NODES)
+    n = 0
+    for p in (True, False, True):
+        pred.fill_(p)
+        g.replay()
+        n += p
+        want = sides[0](a) if p else sides[1](a)
+        fail_unless(all(bitwise_equal(x, y) for x, y in zip(got, want))
+                    and int(store["n"]) == n,
+                    f"cond route: replay with pred {p} wrong")
+    fail_unless(nodes[1] == 4, f"cond route: {nodes} (all, conditional, "
+                f"work) nodes, expected 4 conditional")
+    print(f"phase 13 cond route: ok torch {torch.__version__} binds "
+          f"begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}; "
+          f"csrc/graph_cond.cu IF nodes: cond + when captured "
+          f"(nodes, conditional, work at top level)={nodes} bodies={bodies},"
+          f" replays True/False/True bitwise the eager calls", flush=True)
 
 
-def phase_cond_probe():
-    """Phase 13, the conditional-node route: does `torch.cond` capture
-    into a CUDA graph (a conditional node, which would let the keyframe
-    finalize pay only when taken)?  In a child process, since a failed
-    capture may leave the context unusable."""
-    out = subprocess.run([sys.executable, "-c", COND_PROBE],
-                         capture_output=True, text=True, timeout=300)
-    lines = ((out.stdout or out.stderr).strip().splitlines()
-             or ["no output"])
-    print(f"phase 13 torch.cond under CUDA graph capture (torch "
-          f"{torch.__version__}): {lines[-1]} (exit {out.returncode})",
-          flush=True)
+MARKER = "spin_kernel"   # torch.cuda._sleep's kernel: cuts a trace
+
+
+def per_frame_device(run_frame, frames):
+    """(device events, device ms) of each frame but the first: `run_frame`
+    over `frames` under one torch.profiler run, each frame followed by a
+    marker kernel (torch.cuda._sleep) and a sync, the device events cut at
+    the markers.  The first frame only brings the tracer up (one run's
+    first traced frame came out one event short)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        run_frame(frames[0])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        for f in frames[1:]:
+            run_frame(f)
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+    events = sorted(device_events(prof), key=lambda e: e.time_range.start)
+    cuts = [i for i, e in enumerate(events) if MARKER in e.name]
+    fail_unless(len(cuts) == len(frames),
+                f"per-frame profile: {len(cuts)} markers for "
+                f"{len(frames) - 1} frames")
+    return [(b - a - 1, sum(e.time_range.end - e.time_range.start
+                            for e in events[a + 1:b]) / 1e3)
+            for a, b in zip(cuts, cuts[1:])]
+
+
+def branch_drive(dev, cfg, frames, what):
+    """Phase 13: `frames` through ElevationPipeline (the graph: a single
+    robot's branches as IF nodes) and the eager `step` (every branch a
+    select), in turns under set_sync_debug_mode("error"), every state leaf
+    and output bitwise after every frame, noting the branches each frame
+    takes.  Then a fresh pipeline over the same frames: its capture's IF
+    nodes (`control.IF_NODES`: each body's kernel, copy and fill nodes)
+    and the device events and ms of each replayed frame from the third on;
+    every such frame's events less its taken bodies' nodes must be one
+    number.  Returns the summary
+    it prints."""
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+    from gem_tpu_torch.utils import control
+
+    every, S = cfg.raytrace_every, cfg.submap.staging_frames
+    pipe = ElevationPipeline(cfg, device=dev)
+    state = init_pipeline_state(cfg, dev)
+    taken = []
+    for i, f in enumerate(frames):
+        due = every > 1 and int(state.frame_idx) % every == 0
+        full = S > 0 and int(state.submaps.staging_used) == S - 1
+        with sync_free():
+            got = pipe.process(f)
+            state, ref = step(state, f, cfg)
+        bad = differing_leaves(pipe.state, state) + differing_leaves(got, ref)
+        fail_unless(not bad, f"branches {what} frame {i}: {bad} differ from "
+                    f"the eager step")
+        jump, key = bool(state.jump_odom), bool(ref.keyframe_due)
+        taken.append({"_move_branch": not jump, "_jump_branch": jump,
+                      "_raytrace": due, "_unchanged": every > 1 and not due,
+                      "flush_staging": full, "_finalize": key})
+    del pipe, state, got, ref
+
+    held = {}
+    control.IF_NODES.clear()
+    held["pipe"] = ElevationPipeline(cfg, device=dev)
+    held["pipe"].process(frames[0])
+    bodies = list(control.IF_NODES)
+    want = ["_move_branch", "_jump_branch"] + ["flush_staging"] * (S > 0) \
+        + ["_raytrace", "_unchanged"] * (every > 1) + ["_finalize"]
+    fail_unless([name for name, _ in bodies] == want,
+                f"branches {what}: IF nodes {bodies}, expected {want}")
+    count = {k: sum(t[k] for t in taken) for k in taken[0]}
+    # frame 0 captured, frame 1 brings the tracer up: frames 2.. profiled
+    rows = per_frame_device(lambda f: held["pipe"].process(f), frames[1:])
+    held.clear()
+    taken = taken[2:]
+    base = [n - sum(w for name, w in bodies if taken[i][name])
+            for i, (n, _) in enumerate(rows)]
+    fail_unless(len(set(base)) == 1, f"branches {what}: device events less "
+                f"the taken bodies' nodes differ by frame: {base}; events "
+                f"{[n for n, _ in rows]}; bodies {bodies}")
+    plain = lambda t: not (t["_jump_branch"] or t["_raytrace"]
+                           or t["flush_staging"] or t["_finalize"])
+    split = {}
+    for label, pick in (("no_branch", plain),
+                        ("branch", lambda t: not plain(t))):
+        sel = [r for r, t in zip(rows, taken) if pick(t)]
+        if sel:
+            split[label] = {"frames": len(sel),
+                            "device_events": statistics.mean(
+                                n for n, _ in sel),
+                            "device_ms": statistics.mean(m for _, m in sel)}
+    summary = {"jump_frames": count["_jump_branch"],
+               "keyframes": count["_finalize"],
+               "staging_flushes": count["flush_staging"],
+               "raytrace_frames": count["_raytrace"] if every > 1
+               else len(frames), "bodies": bodies,
+               "events_outside_bodies": base[0], **split}
+    print(f"phase 13 branches {what} L={cfg.map.length} P={cfg.max_points} "
+          f"raytrace_every={every} staging_frames={S} keyframe_distance="
+          f"{cfg.submap.keyframe_distance} store_ortho="
+          f"{cfg.submap.store_ortho} keyframe_scan_points="
+          f"{cfg.submap.keyframe_scan_points} {len(frames)} frames: ok "
+          f"graph_vs_eager=bitwise every frame, sync_debug=error; every "
+          f"frame's device events = {base[0]} + its taken IF bodies' nodes; "
+          f"{json.dumps(summary)}", flush=True)
+    return summary
+
+
+def phase_branches(dev, frames):
+    """Phase 13's branch drives: the benchmark preset on phase 8's frames
+    with a jump at 12 (the prediction's untaken frames), the flagship
+    width with every branch taken, and the kitti preset, `run`'s
+    default, with its orthomosaic and keyframe scan stored."""
+    import dataclasses
+
+    from gem_tpu_torch.config import benchmark_config, kitti_config
+    from gem_tpu_torch.io.replay import synthetic_frames
+
+    jumped = with_jump(frames, 12)
+    out = {"benchmark": branch_drive(dev, benchmark_config(), jumped,
+                                     "benchmark")}
+    cfg = benchmark_config(raytrace_every=3)
+    cfg = cfg.replace(submap=dataclasses.replace(
+        cfg.submap, keyframe_distance=4.0, staging_frames=8))
+    out["every_branch"] = branch_drive(dev, cfg, jumped, "every_branch")
+    fail_unless(all(out["every_branch"][k] > 0 for k in (
+        "jump_frames", "keyframes", "staging_flushes", "raytrace_frames")),
+        f"every_branch: {out['every_branch']}")
+    kitti = kitti_config()
+    kframes = with_jump([f for f, _, _ in synthetic_frames(
+        kitti, 40, speed=1.0, seed=3, device=dev)], 20)
+    out["kitti"] = branch_drive(dev, kitti, kframes, "kitti")
+    return out
 
 
 def phase_graph_fleet(dev, cfg, streams, single=None):
@@ -2339,6 +2565,8 @@ def main():
     launches_pallas, step_pallas, _, _ = phase_flagship(dev, "pallas", frames,
                                                         world)
     graph_ms = phase_graph(dev, frames)
+    phase_cond_route(dev)
+    branches = phase_branches(dev, frames)
     del frames
     # phase 4 after the flagship: its second state is the stream path's map
     cfg = benchmark_config()
@@ -2350,7 +2578,6 @@ def main():
     phase_global_map(dev, cloud)
     del cloud
     fleets, fleet_graph = phase_fleet(dev, graph_ms["stream"])
-    phase_cond_probe()
     phase_fleet_cli(dev)
     phase_distributed(dev, *fleets["stream"][:2])
     fleet_launches = {**fleets["stream"][2], "segment_stats_sorted":
@@ -2419,7 +2646,12 @@ def main():
           f"device events / ms per frame, graph: single step stream="
           f"{graph_ms['stream'][2][1]:.1f} / {graph_ms['stream'][2][2]:.3f}"
           f" fleet frame (R=4)={fleet_graph[2][1]:.1f} / "
-          f"{fleet_graph[2][2]:.3f} (phase 13)", flush=True)
+          f"{fleet_graph[2][2]:.3f} (phase 13); single step by frame, "
+          f"no branch / branch: " + "; ".join(
+              f"{k} " + " / ".join(
+                  f"{v[c]['device_events']:.1f} ev {v[c]['device_ms']:.3f} ms"
+                  if c in v else "none" for c in ("no_branch", "branch"))
+              for k, v in branches.items()) + " (phase 13)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

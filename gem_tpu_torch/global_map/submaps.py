@@ -13,11 +13,17 @@ rebuilt, which would copy ~60 MB each per frame at the flagship size.  The
 store passed to `append_shed`, `flush_staging` and `finalize_submap` is
 consumed; use the returned one.
 
-No host read: the staging row is a device index, and the flush and the
-finalize take a () bool `when` instead of a Python branch (the step's
-selects for JAX's `lax.cond`).  They then run on every frame and keep the
-old values where `when` is False; a ring slot is rewritten with its own
-rows.
+No host read: the staging row is a device index, and the staging flush is
+`utils.control.when(used >= S, flush_staging, store)`, the counterpart of
+JAX's `lax.cond`.  Without `when`, `flush_staging` and `finalize_submap`
+are the taken branch: they write every leaf they change into the store's
+own tensors (`copy_`, `index_copy_`, `add_`, `zero_`) and return the same
+store, so the branch can be the body of a CUDA-graph IF node, after which
+nothing reads a tensor made inside it.  With a () or (R,) bool `when` they
+are the masked form that `control.when` calls on its select route (a
+fleet, or the eager call on a card): the work runs on every frame, the
+counters are selected, and a ring slot is rewritten with its own rows where
+`when` is False.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.move import ShedCells
 from gem_tpu_torch.core.state import MapState
+from gem_tpu_torch.utils.control import when as branch_when
 from gem_tpu_torch.utils.tree import lead
 
 _FIELDS = ("x", "y", "z", "variance", "intensity", "traver", "color",
@@ -193,7 +200,8 @@ def _flat_ring(ring, nb: int):
 
 def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     """Compact every staged shed band into the accumulator, in frame order
-    (unstaged rows carry valid=False).  With a () bool `when`, only where
+    (unstaged rows carry valid=False).  Without `when`, in place: the
+    returned store is `store`.  With a () or (R,) bool `when`, only where
     it is True: the compaction runs either way and the store keeps its old
     leaves where `when` is False (the select for JAX's `lax.cond`)."""
     st = store.staging
@@ -203,9 +211,14 @@ def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     accum, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                           flat)
     if when is None:
+        for f in _FIELDS:
+            getattr(store.accum, f).copy_(getattr(accum, f))
+        store.accum_count.copy_(cnt)
+        store.dropped.add_(dropped)
         st.valid.zero_()
-    else:
-        st.valid.logical_and_(~lead(when, st.valid))
+        store.staging_used.zero_()
+        return store
+    st.valid.logical_and_(~lead(when, st.valid))
     return store.replace(
         accum=PointBuffer(**{f: _select(when, getattr(accum, f),
                                         getattr(store.accum, f))
@@ -220,8 +233,8 @@ def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
 
     With staging on, the band is written into row `staging_used` of the
     ring (a device index, so no count is read to the host) and the ring is
-    compacted on the frame it fills, by a mask.  A shed of another width
-    flushes and compacts at once."""
+    compacted on the frame it fills, a `control.when` branch.  A shed of
+    another width flushes and compacts at once."""
     S = store.staging.x.shape[-2]
     if S == 0 or shed.x.shape[-1] != store.staging.x.shape[-1]:
         store = flush_staging(store)
@@ -238,7 +251,7 @@ def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
     used = store.staging_used + 1
     store = store.replace(staging_used=used,
                           dropped=store.dropped + shed.dropped)
-    return flush_staging(store, when=used >= S)
+    return branch_when(used >= S, flush_staging, store)
 
 
 def grid_to_points(state: MapState, cfg, traver) -> PointBuffer:
@@ -265,10 +278,11 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
                     keyframe_pose, ortho=None, kf_points=None,
                     kf_count=None, when=None) -> SubmapStore:
     """Close the current submap: accumulator + grid snapshot -> next ring
-    slot; optional (L, L, 3) orthomosaic `ortho` (written in place into
-    the `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
-    `kf_count` valid rows.  With a () bool `when`, only where it is True:
-    the slot is rewritten with its old rows and every counter stays where
+    slot; optional (L, L, 3) orthomosaic `ortho` (written into the
+    `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
+    `kf_count` valid rows.  Without `when`, in place: the returned store is
+    `store`.  With a () or (R,) bool `when`, only where it is True: the
+    slot is rewritten with its old rows and every counter stays where
     `when` is False.  With a robot axis each robot closes into its own
     next slot."""
     K = store.counts.shape[-1]
@@ -282,22 +296,39 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
 
     def write_slot(ring, value):
         flat = _flat_ring(ring, nb)
-        old = flat.index_select(0, rows)
-        flat.index_copy_(0, rows, _select(when, value.reshape(old.shape),
-                                          old))
+        if when is not None:
+            old = flat.index_select(0, rows)
+            value = _select(when, value.reshape(old.shape), old)
+        flat.index_copy_(0, rows, value.reshape((-1,) + flat.shape[1:]))
 
     for f in _FIELDS:
         write_slot(getattr(store.slots, f), getattr(merged, f))
     if ortho is not None and store.orthos.shape[nb + 1] > 0:
         write_slot(store.orthos, ortho.to(torch.uint8))
     pose = keyframe_pose.to(torch.float32)
+    with_scan = kf_points is not None and store.kf_points.shape[nb + 1] > 0
+
+    if when is None:
+        if with_scan:
+            write_slot(store.kf_points, kf_points.to(torch.float32))
+            write_slot(store.kf_counts, kf_count.to(torch.int32))
+        write_slot(store.counts, cnt)
+        write_slot(store.centers, pose[..., :2])
+        write_slot(store.poses, pose)
+        write_slot(store.kf_ids, store.num_submaps)
+        store.num_submaps.add_(1)
+        for f in _FIELDS:
+            getattr(store.accum, f).zero_()
+        store.accum_count.zero_()
+        store.dropped.add_(dropped)
+        return store
 
     def put(arr, v):
         flat = _flat_ring(arr, nb)
         new = flat.index_copy(0, rows, v.reshape((-1,) + flat.shape[1:]))
         return _select(when, new.reshape(arr.shape), arr)
     kf_pts, kf_counts = store.kf_points, store.kf_counts
-    if kf_points is not None and store.kf_points.shape[nb + 1] > 0:
+    if with_scan:
         kf_pts = put(kf_pts, kf_points.to(torch.float32))
         kf_counts = put(kf_counts, kf_count.to(torch.int32))
     return store.replace(

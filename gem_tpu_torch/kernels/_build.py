@@ -60,6 +60,16 @@ _SIGNATURES = {
     # feature_min_neighbors, stream
     "gem_plane_fit_features": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _F,
                                _F, _F, _F, _F, _P),
+    # the conditional nodes of utils/control.py (csrc/graph_cond.cu):
+    # stream (out)
+    "gem_graph_stream_create": (ctypes.POINTER(_P),),
+    # capturing stream, device bool, negate, body stream
+    "gem_graph_if_begin": (_P, _P, _I, _P),
+    # body stream, the body's kernel/copy/fill nodes (out)
+    "gem_graph_if_end": (_P, ctypes.POINTER(_L)),
+    # cudaGraph_t, nodes, conditional nodes, kernel/copy/fill nodes (out)
+    "gem_graph_count_nodes": (_P, ctypes.POINTER(_L), ctypes.POINTER(_L),
+                              ctypes.POINTER(_L)),
 }
 
 

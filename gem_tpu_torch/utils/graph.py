@@ -19,11 +19,16 @@ The first call of each pair runs the function eagerly on the state, and
 that run is the call's own result; then the pair is captured.  The eager
 run is the warm-up a capture needs: it builds the kernel library, fills the
 cached device tables and initialises the libraries, none of which may
-happen while a stream is captured.  So each frame launches each kernel
-once on the device, the first one included.  A capture that fails raises,
-after the eager run has advanced the state; no graph is kept, so the next
-call tries again.  There is no eager fallback.  All graphs of one program
-share one memory pool, and they are replayed one at a time.
+happen while a stream is captured.  Its branches (utils/control.py `cond`,
+`when`) take the select route, so both sides of each are warmed up; in the
+capture a single robot's branches become CUDA-graph IF nodes, which `cond`
+finds on the capturing stream itself, and `write_back` runs after them, on
+the merged outputs.  So each frame launches each kernel once on the
+device, the first one included.  A capture that fails raises, naming the
+branch that broke when a branch did, after the eager run has advanced the
+state; no graph is kept, so the next call tries again.  There is no eager
+fallback.  All graphs of one program share one memory pool, and they are
+replayed one at a time.
 
 On CPU tensors the function is called directly, as JAX on the CPU runs the
 same function.
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from gem_tpu_torch.utils.control import BranchError
 from gem_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -145,8 +151,12 @@ class DeviceProgram:
                 write_back(self._buffers, new_state)
         except RuntimeError as e:
             name = getattr(fn, "func", fn).__name__
+            # a failed IF node may surface as the capture's end failing
+            cause = e
+            while cause is not None and not isinstance(cause, BranchError):
+                cause = cause.__context__
             raise RuntimeError(f"DeviceProgram: CUDA graph capture of "
-                               f"{name} failed: {e}") from e
+                               f"{name} failed: {cause or e}") from e
         self._graphs[key] = (graph, list(tree_leaves(static_in).values()),
                              static_out)
         return out

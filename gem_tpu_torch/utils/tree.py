@@ -1,5 +1,6 @@
-"""Maps over the package's state trees: frozen dataclasses and dicts whose
-leaves are tensors (None stays None), the counterpart of `jax.tree.map`."""
+"""Maps over the package's state trees: frozen dataclasses, dicts and
+tuples whose leaves are tensors (None stays None), the counterpart of
+`jax.tree.map`."""
 
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     if tree is None:
         return None
     return fn(tree, *rest)
@@ -31,9 +35,10 @@ def tree_leaves(tree, prefix: str = "") -> dict:
             out.update(tree_leaves(getattr(tree, f.name),
                                    f"{prefix}{f.name}/"))
         return out
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, tuple)):
         out = {}
-        for k, v in tree.items():
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
             out.update(tree_leaves(v, f"{prefix}{k}/"))
         return out
     return {} if tree is None else {prefix[:-1]: tree}

@@ -1028,3 +1028,164 @@ def test_failed_capture_raises(cuda):
             prog(host_read, {"y": torch.ones(2, device=cuda)})
     torch.cuda.synchronize()
     assert prog.state["x"].tolist() == [4.0, 4.0, 4.0]
+
+
+# --- the step's branches as CUDA-graph IF nodes (utils/control.py) --------
+
+_BRANCH_CASES = {
+    # raytrace_every, staging frames, frame count, jump_at (the cases of
+    # tests/test_torch_pipeline.py)
+    "jump_on_keyframe": (1, 3, 8, 3),
+    "staging_full_on_keyframe": (1, 4, 10, 5),
+    "raytrace_every_3": (3, 3, 8, 3),
+}
+
+
+def _branch_cfg(every, staging, L=300):
+    cfg = benchmark_config(length=L, max_points=4096)
+    return cfg.replace(raytrace_every=every, submap=dataclasses.replace(
+        cfg.submap, keyframe_distance=1.0, staging_frames=staging,
+        capacity=4096, max_submaps=4, store_ortho=True,
+        keyframe_scan_points=64))
+
+
+def _branch_frames(cfg, device, n, jump_at, seed):
+    """n frames at 0.35 m per frame; frame `jump_at` closes a loop (pose
+    +0.5 m, z +0.3 m), the next three hold the jumped z (the jump settles),
+    the frame after bumps z (it finishes); frame 6 is all padding."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+
+    fr = [f for f, _, _ in synthetic_frames(cfg, n, n_points=3000,
+                                            speed=0.35, seed=seed,
+                                            max_range=2.4, device=device)]
+    jz = None
+    for i in range(jump_at, n):
+        tr = fr[i].track_position.clone()
+        if i == jump_at:
+            tr += torch.tensor([0.5, 0.0, 0.3], device=device)
+            jz = tr[2].clone()
+            fr[i] = dataclasses.replace(fr[i], track_position=tr,
+                                        loop_closure=torch.ones(
+                                            (), dtype=torch.bool,
+                                            device=device))
+            continue
+        tr[0] += 0.5
+        tr[2] = jz if i < jump_at + 4 else jz + 0.05
+        fr[i] = dataclasses.replace(fr[i], track_position=tr)
+    fr[6] = dataclasses.replace(fr[6], valid=torch.zeros_like(fr[6].valid))
+    return fr
+
+
+_RINGS = ("slots", "orthos", "kf_points", "kf_counts", "counts", "poses")
+
+
+@pytest.mark.parametrize("case", sorted(_BRANCH_CASES))
+def test_graph_branches_equal_eager_bitwise(cuda, case):
+    """L=300, the frames where the step's four conds meet: the replayed
+    graph (one robot: IF nodes, only the taken side runs) against the eager
+    `step` (the select route: both sides), every state leaf and output
+    bitwise after every frame, with no host sync.  On every frame whose
+    keyframe is not due, the skipped finalize leaves the submap rings'
+    bytes as they were."""
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+    from gem_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    every, staging, n, jump_at = _BRANCH_CASES[case]
+    cfg = _branch_cfg(every, staging)
+    frames = _branch_frames(cfg, cuda, n, jump_at, seed=11 + n + jump_at)
+    frames = [dataclasses.replace(f, loop_closure=torch.zeros(
+        (), dtype=torch.bool, device=cuda)) if f.loop_closure is None
+        else f for f in frames]
+    pipe = ElevationPipeline(cfg, device=cuda)
+    state = init_pipeline_state(cfg, cuda)
+    S = staging
+    events = []
+    before = torch.cuda.get_sync_debug_mode()
+    for i, f in enumerate(frames):
+        full = int(state.submaps.staging_used) == S - 1
+        rings = {k: tree_map(torch.clone, getattr(pipe.state.submaps, k))
+                 for k in _RINGS}
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipe.process(f)
+            state, ref = step(state, f, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+        assert not _leaves_equal(pipe.state, state), (i, _leaves_equal(
+            pipe.state, state))
+        assert not _leaves_equal(out, ref), (i, _leaves_equal(out, ref))
+        key = bool(ref.keyframe_due)
+        if not key and i > 0:
+            for k, old in rings.items():
+                now = tree_leaves(getattr(pipe.state.submaps, k))
+                for name, t in tree_leaves(old).items():
+                    assert torch.equal(now[name], t), (i, k, name)
+        events.append((bool(state.jump_odom), key, full))
+    if case == "jump_on_keyframe":
+        assert any(j and k for j, k, _ in events), events
+    elif case == "staging_full_on_keyframe":
+        assert any(k and f and not j for j, k, f in events), events
+    else:
+        assert any(k for _, k, _ in events), events
+
+
+def test_captured_step_holds_conditional_nodes(cuda):
+    """The step captured for one robot holds one IF node per branch side,
+    in the step's order: jump vs move (2), the staging flush (1), the
+    raytrace cadence (2), the keyframe finalize (1); the fleet's batched
+    step (R = 2) holds none."""
+    from gem_tpu_torch.mapping.pipeline import (batched_step,
+                                                init_pipeline_state, step,
+                                                stack_frames)
+    from gem_tpu_torch.utils import control
+    from gem_tpu_torch.utils.tree import tree_map
+
+    cfg = _branch_cfg(3, 3, L=64)
+    f = _branch_frames(cfg, cuda, 8, 3, seed=1)[3]
+    state = init_pipeline_state(cfg, cuda)
+    two = tree_map(lambda x: torch.stack([x, x]), state)
+    frames = stack_frames([f, f])
+    step(state, f, cfg)                   # the eager warm-up
+    batched_step(two, frames, cfg)
+    torch.cuda.synchronize()
+    counts = {}
+    for name, run in (("one", lambda: step(state, f, cfg)),
+                      ("fleet", lambda: batched_step(two, frames, cfg))):
+        control.IF_NODES.clear()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, pool=torch.cuda.graph_pool_handle()):
+            run()
+        counts[name] = (control.count_graph_nodes(g), list(control.IF_NODES))
+        del g
+    (nodes, conditional, work), log = counts["one"]
+    assert conditional == 6 and len(log) == 6, (counts["one"])
+    assert [name for name, _ in log] == [
+        "_move_branch", "_jump_branch", "flush_staging", "_raytrace",
+        "_unchanged", "_finalize"], log
+    assert all(w > 0 for name, w in log if name != "_unchanged"), log
+    assert nodes > work > 0
+    assert counts["fleet"][0][1] == 0 and counts["fleet"][1] == []
+
+
+def test_capture_without_conditional_nodes_raises(cuda, monkeypatch):
+    """With the conditional-node entry point gone, the capture of a single
+    robot's step raises, naming the cond, and keeps no graph; nothing
+    falls back to the selects."""
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.utils import control
+
+    def gone(*args):
+        raise control.BranchError("no conditional nodes")
+
+    monkeypatch.setattr(control, "_begin_if_node", gone)
+    cfg = _graph_cfg()
+    frames = _graph_frames(cfg, cuda)
+    pipe = ElevationPipeline(cfg, device=cuda)
+    for f in frames[:2]:
+        with pytest.raises(RuntimeError,
+                           match=r"capture of step failed: cond\(_move"):
+            pipe.process(f)
+    assert not pipe._program._graphs
+    torch.cuda.synchronize()
+    assert int(pipe.state.frame_idx) == 2     # the eager runs, then raised
