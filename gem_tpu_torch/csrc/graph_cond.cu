@@ -21,7 +21,14 @@
 //   gem_graph_stream_create  a non-blocking stream for bodies;
 //   gem_graph_count_nodes    the top-level nodes of a graph: all, the
 //                            conditional ones, and the kernels, copies and
-//                            fills (a check for tests and chip_smoke.py).
+//                            fills (a check for tests and chip_smoke.py);
+//   gem_trace_stamp          the tracer's device stamp (utils/
+//                            observability.py `mark`): a one-thread kernel
+//                            that writes %globaltimer into one slot of a
+//                            ring, at the row a counter on the device
+//                            holds, advancing the counter first on request,
+//                            so a replayed graph stamps a new row per frame
+//                            with no host read.
 //
 // What the body's work allocates is routed into a private pool by the
 // caller (PyTorch's caching allocator is driven from Python), so no
@@ -29,7 +36,7 @@
 //
 // Bounds: none worth counting.  The set kernel reads one byte; an untaken
 // IF node costs its launch, a few microseconds (PERF.md, chip_smoke.py
-// phase 13).
+// phase 13).  A stamp reads and writes 8 bytes (16 when it advances).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -76,6 +83,26 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
 }
 
 }  // namespace
+
+// Named for the profiler: its launches are the stamps' own device events.
+__global__ void gem_stage_stamp_kernel(long long* ring, long long* row,
+                                       long long rows, int cols, int col,
+                                       int advance) {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  long long r = *row;
+  if (advance) *row = ++r;
+  ring[(((r - 1) % rows + rows) % rows) * cols + col] = now;
+}
+
+extern "C" int gem_trace_stamp(void* stream, void* ring, void* row,
+                               long long rows, int cols, int col,
+                               int advance) {
+  gem_stage_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(ring), static_cast<long long*>(row), rows,
+      cols, col, advance);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int gem_graph_stream_create(void** out) {
   cudaStream_t s = nullptr;

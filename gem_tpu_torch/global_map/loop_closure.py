@@ -12,6 +12,15 @@ distance matrix, and the per-pair cell join is a sort-merge join: one stable
 sort of the 2C packed keys `key << 1 | tag` (int64, so it cannot overflow)
 per pair, then adjacent-row matching.  The pairs of a round are
 vertex-disjoint, so a round is one batched sort over its (P, 2C) keys.
+
+Each `apply_loop_closure` call is one unit of the tracer
+(utils/observability.py): the span `gem.restitch.apply` around it, with
+children `gem.restitch.corrections`, `.transform`, `.select_pairs`,
+`.schedule` and `.refuse` (one `gem.restitch.round` per round), a
+`gem.restitch.read` around each device->host read and a
+`gem.restitch.upload` around each host->device copy (both wait for every
+operation queued before them), counted as `restitch.reads` and
+`restitch.uploads`; stamps `refuse` and `refused` around `refuse_rounds`.
 """
 
 from __future__ import annotations
@@ -21,10 +30,26 @@ import torch
 
 from gem_tpu_torch.global_map.submaps import PointBuffer, SubmapStore
 from gem_tpu_torch.motion.updater import quat_to_rotmat
+from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.precision import f32_recip
 
 _A_INVALID = 0xFFFFFFFE       # key of an invalid a-side row
 _B_INVALID = 0xFFFFFFFF       # key of an invalid b-side row
+
+
+def _read(t):
+    """`t` on the host: a read, which waits for the device."""
+    TRACER.count("restitch.reads")
+    with TRACER.span("gem.restitch.read"):
+        return t.cpu()
+
+
+def _upload(a, device):
+    """A host array on `device`: a pageable copy, which waits for the
+    device too."""
+    TRACER.count("restitch.uploads")
+    with TRACER.span("gem.restitch.upload"):
+        return torch.as_tensor(a, device=device)
 
 
 def pose_to_matrix(poses7):
@@ -160,22 +185,23 @@ def refuse_rounds(slots: PointBuffer, rounds, rounds_valid,
     """
     dev = slots.z.device
     K, C = slots.z.shape
-    rounds = torch.as_tensor(np.asarray(rounds), device=dev).long()
-    rounds_valid = torch.as_tensor(np.asarray(rounds_valid), device=dev)
+    rounds = _upload(np.asarray(rounds), dev).long()
+    rounds_valid = _upload(np.asarray(rounds_valid), dev)
     # one dump row K for the padding lanes' write-back, cut off at the end
     pad = lambda a: torch.cat([a, a.new_zeros((1, C))])
     z, var = pad(slots.z), pad(slots.variance)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for r in range(rounds.shape[0]):
-        i, j, ok = rounds[r, :, 0], rounds[r, :, 1], rounds_valid[r]
-        az, av, bz, bv, n = _refuse(
-            z[i], var[i], slots.x[i], slots.y[i], slots.valid[i],
-            z[j], var[j], slots.x[j], slots.y[j], slots.valid[j],
-            resolution)
-        ti, tj = torch.where(ok, i, K), torch.where(ok, j, K)
-        z[ti], var[ti] = az, av
-        z[tj], var[tj] = bz, bv
-        total = total + torch.where(ok, n, 0).sum()
+        with TRACER.span("gem.restitch.round"):
+            i, j, ok = rounds[r, :, 0], rounds[r, :, 1], rounds_valid[r]
+            az, av, bz, bv, n = _refuse(
+                z[i], var[i], slots.x[i], slots.y[i], slots.valid[i],
+                z[j], var[j], slots.x[j], slots.y[j], slots.valid[j],
+                resolution)
+            ti, tj = torch.where(ok, i, K), torch.where(ok, j, K)
+            z[ti], var[ti] = az, av
+            z[tj], var[tj] = bz, bv
+            total = total + torch.where(ok, n, 0).sum()
     return slots.replace(z=z[:K], variance=var[:K]), total
 
 
@@ -244,11 +270,11 @@ def slot_corrections(store: SubmapStore, opt_poses):
     transform_mask (K,)); transform_mask also excludes keyframe 0, the
     reference's rigid anchor (src/ElevationMapping.cpp:794).  Reads the
     store's ids and poses to the host once per loop event."""
-    ids = store.kf_ids.cpu().numpy()
+    ids = _read(store.kf_ids).numpy()
     opt_np = np.asarray(opt_poses, np.float32).reshape(-1, 7)
-    n_opt = int(min(opt_np.shape[0], int(store.num_submaps)))
+    n_opt = int(min(opt_np.shape[0], int(_read(store.num_submaps))))
     participates = (ids >= 0) & (ids < n_opt)
-    opt_full = store.poses.cpu().numpy().copy()
+    opt_full = _read(store.poses).numpy().copy()
     opt_full[participates] = opt_np[ids[participates]]
     transform_mask = participates & (ids != 0)
     return opt_full, participates, transform_mask
@@ -260,38 +286,49 @@ def apply_loop_closure(store: SubmapStore, cfg,
     re-fuse overlapping pairs.  `opt_poses` is (K', 7) indexed by global
     keyframe id; slots are matched by their stored keyframe id, so the
     pairing survives ring wrap."""
-    opt_full, part, tmask = slot_corrections(store, opt_poses)
+    with TRACER.unit(), TRACER.span("gem.restitch.apply"):
+        return _restitch(store, cfg, opt_poses)
+
+
+def _restitch(store: SubmapStore, cfg, opt_poses):
+    with TRACER.span("gem.restitch.corrections"):
+        opt_full, part, tmask = slot_corrections(store, opt_poses)
     n = int(part.sum())
     if n == 0:
         return store, {"n_corrected": 0, "n_pairs": 0, "n_cells_fused": 0}
 
     dev = store.poses.device
-    opt = torch.from_numpy(opt_full).to(dev)
-    T = relative_transforms(opt, store.poses)
-    eye = torch.eye(4, dtype=torch.float32, device=dev).expand_as(T)
-    full_T = torch.where(torch.from_numpy(tmask).to(dev)[:, None, None],
-                         T, eye)
-    slots = transform_submaps(store.slots, full_T)
-    part_dev = torch.from_numpy(part).to(dev)
-    poses = torch.where(part_dev[:, None], opt, store.poses)
-    centers = torch.where(part_dev[:, None], opt[:, :2], store.centers)
+    with TRACER.span("gem.restitch.transform"):
+        opt = _upload(opt_full, dev)
+        T = relative_transforms(opt, store.poses)
+        eye = torch.eye(4, dtype=torch.float32, device=dev).expand_as(T)
+        full_T = torch.where(_upload(tmask, dev)[:, None, None], T, eye)
+        slots = transform_submaps(store.slots, full_T)
+        part_dev = _upload(part, dev)
+        poses = torch.where(part_dev[:, None], opt, store.poses)
+        centers = torch.where(part_dev[:, None], opt[:, :2], store.centers)
 
     # overlap pairs among corrected submaps (center distance < radius),
     # bounded at nearest-M per submap, batched into vertex-disjoint rounds
     idx = np.nonzero(part)[0]
-    centers_np = centers.cpu().numpy()
-    sub_pairs = select_pairs(centers_np[idx], cfg.submap.overlap_radius,
-                             cfg.submap.max_pairs_per_submap)
-    pairs = [(int(idx[i]), int(idx[j])) for i, j in sub_pairs]
+    centers_np = _read(centers).numpy()
+    with TRACER.span("gem.restitch.select_pairs"):
+        sub_pairs = select_pairs(centers_np[idx], cfg.submap.overlap_radius,
+                                 cfg.submap.max_pairs_per_submap)
+        pairs = [(int(idx[i]), int(idx[j])) for i, j in sub_pairs]
 
     res = cfg.submap.dedup_cell_quantum or cfg.map.resolution
     n_cells = 0
     n_rounds = 0
     if pairs:
-        rounds, valid = schedule_rounds(pairs)
+        with TRACER.span("gem.restitch.schedule"):
+            rounds, valid = schedule_rounds(pairs)
         n_rounds = rounds.shape[0]
-        slots, nf = refuse_rounds(slots, rounds, valid, res)
-        n_cells = int(nf)
+        with TRACER.span("gem.restitch.refuse"):
+            TRACER.mark("refuse", dev)
+            slots, nf = refuse_rounds(slots, rounds, valid, res)
+            TRACER.mark("refused", dev)
+            n_cells = int(_read(nf))
 
     new_store = store.replace(slots=slots, poses=poses, centers=centers)
     return new_store, {"n_corrected": n, "n_pairs": len(pairs),

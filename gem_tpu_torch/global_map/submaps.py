@@ -37,6 +37,7 @@ from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.move import ShedCells
 from gem_tpu_torch.core.state import MapState
 from gem_tpu_torch.utils.control import when as branch_when
+from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.tree import lead
 
 _FIELDS = ("x", "y", "z", "variance", "intensity", "traver", "color",
@@ -203,7 +204,14 @@ def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     (unstaged rows carry valid=False).  Without `when`, in place: the
     returned store is `store`.  With a () or (R,) bool `when`, only where
     it is True: the compaction runs either way and the store keeps its old
-    leaves where `when` is False (the select for JAX's `lax.cond`)."""
+    leaves where `when` is False (the select for JAX's `lax.cond`).
+    Stamps the tracer's `flush` (a finalize's own flush does not)."""
+    if store.staging.x.shape[-2] > 0:
+        TRACER.mark("flush", store.staging.x.device)
+    return _flush(store, when)
+
+
+def _flush(store: SubmapStore, when=None) -> SubmapStore:
     st = store.staging
     if st.x.shape[-2] == 0:
         return store
@@ -288,7 +296,7 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
     K = store.counts.shape[-1]
     slot = torch.remainder(store.num_submaps, K).long()
     nb = slot.dim()
-    store = flush_staging(store, when)   # staged bands precede the snapshot
+    store = _flush(store, when)   # staged bands precede the snapshot
     merged, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                            grid_points)
 

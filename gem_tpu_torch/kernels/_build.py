@@ -70,6 +70,9 @@ _SIGNATURES = {
     # cudaGraph_t, nodes, conditional nodes, kernel/copy/fill nodes (out)
     "gem_graph_count_nodes": (_P, ctypes.POINTER(_L), ctypes.POINTER(_L),
                               ctypes.POINTER(_L)),
+    # the tracer's stamp (utils/observability.py): stream, ring (int64),
+    # row counter (int64), rows, columns, column, advance
+    "gem_trace_stamp": (_P, _P, _P, _L, _I, _I, _I),
 }
 
 

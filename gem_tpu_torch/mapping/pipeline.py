@@ -63,6 +63,7 @@ from gem_tpu_torch.sensors.models import jacobian_ingredients
 from gem_tpu_torch.utils import control
 from gem_tpu_torch.utils.device import resolve_device
 from gem_tpu_torch.utils.graph import DeviceProgram
+from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.tree import tree_map
 
 FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
@@ -171,11 +172,20 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
                  fuse_backend: str = "stream"
                  ) -> tuple[PipelineState, StepOutputs]:
     """One frame for every robot: `state` and `frame` carry a leading robot
-    axis R on every leaf, and so do the results.  `state` is consumed."""
+    axis R on every leaf, and so do the results.  `state` is consumed.
+    A unit of the tracer, stamped at each stage's start (move, pointproc,
+    fuse, motion, features, shed, raytrace, keyframe) and inside the flush
+    and finalize bodies (utils/observability.py)."""
+    with TRACER.unit():
+        return _stages(state, frame, cfg, fuse_backend)
+
+
+def _stages(state: PipelineState, frame: Frame, cfg, fuse_backend: str):
     _check_backend(fuse_backend)
     track = frame.track_position.to(torch.float32)
     dev = track.device
     R = track.shape[0]
+    TRACER.mark("move", dev)
 
     # --- odometry-jump bookkeeping (src/ElevationMapping.cpp:987-993) ------
     jump_odom = state.jump_odom
@@ -207,6 +217,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
         ~use_jump, _move_branch, _jump_branch, state.map)
 
     # --- point processing ---------------------------------------------------
+    TRACER.mark("pointproc", dev)
     sensor_jac, c_sb_t, p_bm_t, b_skew = jacobian_ingredients(
         frame.r_map_base, frame.r_base_sensor, frame.t_base_sensor)
     stream = fuse_backend == "stream"
@@ -219,6 +230,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
     map_state = map_state.replace(lowest=lowest)
 
     # --- fuse (K1 on the stream path, K3 on the pallas path) ----------------
+    TRACER.mark("fuse", dev)
     if stream:
         map_state = fuse_stream(map_state, cfg, batch,
                                 with_lowest=cfg.enable_lowest,
@@ -227,6 +239,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
         map_state = fuse(map_state, cfg, batch, backend=fuse_backend)
 
     # --- motion process noise -----------------------------------------------
+    TRACER.mark("motion", dev)
     var_update, motion = process_noise(track, frame.pose_quat, frame.pose_cov,
                                        state.motion,
                                        cfg.motion.covariance_scale)
@@ -236,6 +249,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
                                          cfg.map.invalid_variance))
 
     # --- features (K2) --------------------------------------------------------
+    TRACER.mark("features", dev)
     if cfg.enable_features:
         feats = plane_fit_features(map_state, cfg.map)
         map_state = map_state.replace(traver=feats.traver)
@@ -250,6 +264,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
                                 (R, L, L), dtype=torch.int32, device=dev))
 
     # --- submap shed accumulation ------------------------------------------
+    TRACER.mark("shed", dev)
     # no shed during the jump nor on the frame it settles (JumpFlag,
     # src/ElevationMapping.cpp:630, 716, 766)
     suppress = use_jump | finish
@@ -259,6 +274,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
         submaps = sm.append_shed(submaps, shed)
 
     # --- raytrace visibility cleanup ---------------------------------------
+    TRACER.mark("raytrace", dev)
     if cfg.enable_raytrace:
         def _raytrace(ms):
             return raytrace_cleanup(ms, cfg.map, feats.traver)
@@ -270,6 +286,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
             map_state = _raytrace(map_state)
 
     # --- keyframe finalize (src/ElevationMapping.cpp:624-627) ---------------
+    TRACER.mark("keyframe", dev)
     last_keyframe_xy = state.last_keyframe_xy
     if cfg.enable_submaps:
         dist = torch.linalg.vector_norm(track[:, :2] - state.last_keyframe_xy,
@@ -278,6 +295,7 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
 
         def _finalize(submaps, last_xy, when=None):
             """The keyframe branch, in place (`when` None) or masked."""
+            TRACER.mark("finalize", dev)
             grid_pts = sm.grid_to_points(map_state, cfg, feats.traver)
             pose = torch.cat([track, frame.pose_quat.to(torch.float32)],
                              dim=-1)

@@ -32,6 +32,16 @@ replayed one at a time.
 
 On CPU tensors the function is called directly, as JAX on the CPU runs the
 same function.
+
+Each call is one unit of the tracer (utils/observability.py): spans
+`gem.program.copy_in`, `gem.program.replay` and `gem.program.copy_out`
+(on the CPU the call itself is the replay and the copy spans are empty),
+`gem.program.capture` around a first call's eager run and capture; counters
+`program.replays`, `program.captures` and `program.graphs_dropped`; stamps
+`program.in` before the input copies, `write_back` before the write-back
+and `program.out` after the output copies.  The graphs hold the stamps
+exactly while the tracer is on: turning it on or off drops them, to be
+captured again.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from __future__ import annotations
 import torch
 
 from gem_tpu_torch.utils.control import BranchError
+from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -90,6 +101,7 @@ class DeviceProgram:
     def __init__(self, state):
         self._buffers = None
         self._graphs = {}
+        self._stamped = False        # the graphs hold the tracer's stamps
         self._pool = None
         self.state = state
 
@@ -103,39 +115,70 @@ class DeviceProgram:
         self.device = next(iter(leaves.values())).device
         if self.device.type != "cuda":
             self._buffers = state
-            self._graphs.clear()
+            self._drop_graphs()
         elif self._buffers is not None and _signature(leaves) \
                 == _signature(tree_leaves(self._buffers)):
             write_back(self._buffers, state)
         else:
-            self._graphs.clear()
+            self._drop_graphs()
             self._buffers = tree_map(_fresh, state)
 
+    def _drop_graphs(self) -> None:
+        if self._graphs:
+            TRACER.count("program.graphs_dropped", len(self._graphs))
+        self._graphs.clear()
+
     def __call__(self, fn, inputs):
-        if self.device.type != "cuda":
-            self._buffers, out = fn(self._buffers, inputs)
+        with TRACER.unit():
+            return self._call(fn, inputs)
+
+    def _call(self, fn, inputs):
+        dev = self.device
+        if dev.type != "cuda":
+            TRACER.mark("program.in", dev)
+            with TRACER.span("gem.program.copy_in"):
+                pass
+            with TRACER.span("gem.program.replay"):
+                self._buffers, out = fn(self._buffers, inputs)
+            TRACER.mark("write_back", dev)
+            with TRACER.span("gem.program.copy_out"):
+                pass
+            TRACER.mark("program.out", dev)
             return out
         leaves = tree_leaves(inputs)
+        if TRACER.on != self._stamped:
+            self._drop_graphs()
+            self._stamped = TRACER.on
         key = (fn, _signature(leaves))
         entry = self._graphs.get(key)
         if entry is None:
             for name, t in leaves.items():
-                if t.device != self.device:
+                if t.device != dev:
                     raise ValueError(f"DeviceProgram: input {name} is on "
-                                     f"{t.device}, the state on "
-                                     f"{self.device}")
-            return self._run_and_capture(fn, inputs, key)
+                                     f"{t.device}, the state on {dev}")
+            with TRACER.span("gem.program.capture"):
+                return self._run_and_capture(fn, inputs, key)
         graph, static_in, static_out = entry
-        for dst, src in zip(static_in, leaves.values()):
-            dst.copy_(src)
-        graph.replay()
-        return tree_map(torch.clone, static_out)
+        TRACER.mark("program.in", dev)
+        with TRACER.span("gem.program.copy_in"):
+            for dst, src in zip(static_in, leaves.values()):
+                dst.copy_(src)
+        with TRACER.span("gem.program.replay"):
+            graph.replay()
+        TRACER.count("program.replays")
+        with TRACER.span("gem.program.copy_out"):
+            out = tree_map(torch.clone, static_out)
+        TRACER.mark("program.out", dev)
+        return out
 
     def _run_and_capture(self, fn, inputs, key):
+        TRACER.mark("program.in", self.device)
         static_in = tree_map(_fresh, inputs)
         new_state, out = fn(self._buffers, static_in)
+        TRACER.mark("write_back", self.device)
         out = tree_map(torch.clone, out)
         write_back(self._buffers, new_state)
+        TRACER.mark("program.out", self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         buffers = {_storage(t) for t in tree_leaves(self._buffers).values()}
@@ -143,6 +186,7 @@ class DeviceProgram:
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 new_state, static_out = fn(self._buffers, static_in)
+                TRACER.mark("write_back", self.device)
                 # an output that is a state buffer would be read after the
                 # write-back below: copy it out first
                 static_out = tree_map(
@@ -159,4 +203,5 @@ class DeviceProgram:
                                f"{name} failed: {cause or e}") from e
         self._graphs[key] = (graph, list(tree_leaves(static_in).values()),
                              static_out)
+        TRACER.count("program.captures")
         return out

@@ -446,43 +446,3 @@ def test_synthetic_frames_identical_to_jax_package():
         x = np.linspace(-20, 20, 50)
         np.testing.assert_array_equal(tw.height(x, -x), jw.height(x, -x))
 
-
-# --- observability --------------------------------------------------------
-
-
-def test_phase_timer_matches_jax():
-    """The same phases through gem_tpu's PhaseTimer and the port's: the
-    same summary keys, per-phase keys and counts.  A CPU tensor, a meta
-    tensor, a state tree and a non-tensor as `sync` need no wait and must
-    not fail."""
-    import jax.numpy as jnp
-
-    from gem_tpu.utils.observability import PhaseTimer as JPhaseTimer
-
-    from gem_tpu_torch.config import benchmark_config
-    from gem_tpu_torch.core.state import init_map_state
-    from gem_tpu_torch.utils.observability import PhaseTimer
-
-    mcfg = benchmark_config(length=8).map
-    syncs = [None, torch.ones(3), torch.empty(4, device="meta"),
-             init_map_state(mcfg, "cpu"),
-             {"a": [torch.zeros(2), (torch.ones(1), 5)]}, 3.0]
-    jt, tt = JPhaseTimer(), PhaseTimer()
-    for k, s in enumerate(syncs):
-        name = ("move", "fuse", "features")[k % 3]
-        with jt.phase(name, sync=None if s is None else jnp.ones(3)):
-            pass
-        with tt.phase(name, sync=s):
-            pass
-    with pytest.raises(KeyError):
-        with tt.phase("raises"):
-            raise KeyError("inside")
-    with jt.phase("raises"):
-        pass
-    js, ts = jt.summary(), tt.summary()
-    assert list(ts) == list(js) == ["move", "fuse", "features", "raises"]
-    for k in js:
-        assert list(ts[k]) == list(js[k]) == ["total_s", "mean_ms", "count"]
-        assert ts[k]["count"] == js[k]["count"]
-        assert ts[k]["total_s"] >= 0 and ts[k]["mean_ms"] >= 0
-    assert ts["fuse"]["count"] == 2 and ts["raises"]["count"] == 1

@@ -1189,3 +1189,104 @@ def test_capture_without_conditional_nodes_raises(cuda, monkeypatch):
     assert not pipe._program._graphs
     torch.cuda.synchronize()
     assert int(pipe.state.frame_idx) == 2     # the eager runs, then raised
+
+
+# --- the tracer's stamps (utils/observability.py) --------------------------
+
+
+@pytest.fixture
+def tracer():
+    from gem_tpu_torch.utils.observability import TRACER
+
+    TRACER.enable(False)
+    TRACER.reset()
+    yield TRACER
+    TRACER.enable(False)
+    TRACER.reset()
+
+
+def test_captured_step_stamps_only_with_the_tracer_on(cuda, tracer):
+    """Off, the step's capture holds no stamp: the same nodes as before the
+    tracer existed.  On, one kernel node per stage mark at the top level
+    (move, pointproc, fuse, motion, features, shed, raytrace, keyframe) and
+    one more in each of the flush and finalize bodies."""
+    from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
+    from gem_tpu_torch.utils import control
+
+    cfg = _branch_cfg(3, 3, L=64)
+    f = _branch_frames(cfg, cuda, 8, 3, seed=1)[3]
+    state = init_pipeline_state(cfg, cuda)
+    with tracer.enabled():
+        step(state, f, cfg)               # the eager warm-up, the ring
+    torch.cuda.synchronize()
+    counts = {}
+    for on in (False, True):
+        tracer.enable(on)
+        control.IF_NODES.clear()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, pool=torch.cuda.graph_pool_handle()):
+            step(state, f, cfg)
+        counts[on] = (control.count_graph_nodes(g), dict(control.IF_NODES))
+        del g
+    (n0, c0, w0), b0 = counts[False]
+    (n1, c1, w1), b1 = counts[True]
+    assert (n1 - n0, c1 - c0, w1 - w0) == (8, 0, 8), counts
+    assert {k: b1[k] - b0[k] for k in b0} == {
+        "_move_branch": 0, "_jump_branch": 0, "flush_staging": 1,
+        "_raytrace": 0, "_unchanged": 0, "_finalize": 1}, counts
+
+
+def test_program_stamps_every_replayed_frame(cuda, tracer):
+    """ElevationPipeline with the tracer on captures once, then replays:
+    each frame's row holds its stages in order, and the flush and finalize
+    bodies' stamps are the frame's own only on the frames that take them;
+    the state is bitwise the one without the tracer.  Turning the tracer
+    off drops the graph and captures one without stamps, which leaves the
+    ring alone; turning it on again drops that one in turn."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.utils.observability import COLUMN, stage_ns, taken
+
+    cfg = _graph_cfg()
+    frames = [f for f, _, _ in synthetic_frames(
+        cfg, 12, n_points=3000, speed=0.35, seed=2, max_range=3.0,
+        device=cuda)]
+    plain = ElevationPipeline(cfg, device=cuda)
+    for f in frames:
+        plain.process(f)
+    tracer.enable()
+    pipe = ElevationPipeline(cfg, device=cuda)
+    S = cfg.submap.staging_frames
+    took = []
+    for i, f in enumerate(frames):
+        full = int(pipe.state.submaps.staging_used) == S - 1
+        out = pipe.process(f)
+        took.append((bool(out.keyframe_due), full))
+        if i == 0:
+            assert tracer.counts["program.captures"] == 1
+    assert tracer.counts["program.captures"] == 1
+    assert tracer.counts["program.replays"] == len(frames) - 1
+    assert not _leaves_equal(plain.state, pipe.state)
+    assert any(k for k, _ in took[1:]) and any(f for _, f in took[1:])
+    ring = tracer.ring(cuda)
+    order = ["program.in", "move", "pointproc", "fuse", "motion", "features",
+             "shed", "raytrace", "keyframe", "write_back", "program.out"]
+    for (key, flush), r in list(zip(took, tracer.recent_rows(
+            cuda, len(frames))))[1:]:
+        row = ring[r]
+        stamps = [row[COLUMN[s]] for s in order]
+        assert stamps == sorted(stamps) and stamps[0] > 0
+        assert taken(row, "program.in", "flush") == flush
+        assert taken(row, "program.in", "finalize") == key
+        assert len(stage_ns(row, "program.in")) == 8
+    tracer.enable(False)
+    before = tracer.ring(cuda)
+    pipe.process(frames[0])
+    pipe.process(frames[1])
+    assert len(pipe._program._graphs) == 1
+    np.testing.assert_array_equal(tracer.ring(cuda), before)
+    tracer.enable()
+    pipe.process(frames[2])
+    assert len(pipe._program._graphs) == 1
+    assert tracer.counts["program.graphs_dropped"] == 1  # counted while on
+    assert tracer.counts["program.captures"] == 2
