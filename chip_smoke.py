@@ -97,6 +97,12 @@ host's launch overhead is left out):
      (orthomosaics and keyframe scans stored); in each, every frame's
      events less the kernel, copy and fill nodes of the IF bodies it took
      is one number, so an untaken body launches nothing.
+ 14. K4 (refuse_join), the re-stitch's pair join, at phase 10's ring:
+     `refuse_rounds` (keys sorted once per event, one K4 launch per round
+     with a pair) against the plain per-round join on the card, bitwise,
+     launches counted; K4's ms per launch (one CUDA graph) beside its byte
+     bound, the key sort's ms, a plain round's ms (one CUDA graph), and
+     both joins' event ms on the host clock, in turns.
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
 step and fleet-frame medians, one JSON line of per-kernel results (its
@@ -1617,6 +1623,112 @@ def phase_global_map(dev, cloud):
           flush=True)
 
 
+def k4_bytes(keys, rounds, valid, fused):
+    """K4's least bytes over an event's rounds: each pair's two sorted key
+    (int64) and source row (int32) columns, the a row's variance of each
+    key the pair shares (the gate), and for each fused key the other three
+    values read and both rows' z and variance written."""
+    C = keys.shape[1]
+    n_pairs = int(valid.sum())
+    matched = 0
+    for i, j in rounds[valid]:
+        ka, kb = keys[int(i)], keys[int(j)]
+        ends = torch.ones(C, dtype=torch.bool, device=keys.device)
+        ends[:-1] = ka[1:] != ka[:-1]
+        k = ka[ends & (ka < 0xFFFFFFFE)]
+        q = torch.searchsorted(kb, k).clamp(max=C - 1)
+        matched += int((kb[q] == k).sum())
+    return n_pairs * 2 * C * 12 + matched * 4 + fused * 28
+
+
+def phase_k4(dev):
+    """Phase 14: K4 (`refuse_join`, csrc/refuse_join.cu), the re-stitch's
+    pair join, at the flagship ring of phase 10 (64 x 32768, 512 pairs):
+    `refuse_rounds` (keys sorted once, one K4 launch per round with a
+    valid pair) against the plain per-round join on the card, bitwise in z,
+    variance and the fused count, launches counted; then K4's ms per launch
+    (the event's launches in one CUDA graph) beside its byte bound, the
+    once-per-event key sort's ms, a plain round's ms (round 0 in one CUDA
+    graph), and both joins' event ms on the host clock, synchronised, in
+    turns.  Returns K4's row of the kernel table."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.kernels.refuse_join import refuse_join
+
+    cfg = benchmark_config()
+    K, C = cfg.submap.max_submaps, cfg.submap.capacity
+    res = cfg.submap.dedup_cell_quantum or cfg.map.resolution
+    store, poses = global_map_store(cfg, dev)
+    slots = store.slots
+    pairs = lc.select_pairs(poses[:, :2], cfg.submap.overlap_radius,
+                            cfg.submap.max_pairs_per_submap)
+    rounds, valid = lc.schedule_rounds(pairs)
+    live = [rounds[r][valid[r]] for r in range(rounds.shape[0])
+            if valid[r].any()]
+    before = refuse_join.launches
+    got, nf = lc.refuse_rounds(slots, rounds, valid, res)
+    launches = refuse_join.launches - before
+    want, wnf = lc.refuse_rounds_plain(slots, rounds, valid, res)
+    fused = int(nf)
+    fail_unless(fused == int(wnf) > K * C // 10 and launches == len(live),
+                f"K4: fused {fused} vs plain {int(wnf)}, launches "
+                f"{launches} for {len(live)} rounds")
+    fail_unless(bitwise_equal(got.z, want.z)
+                and bitwise_equal(got.variance, want.variance),
+                "K4: z or variance differ from the plain join")
+
+    keys, rows = lc._sorted_keys(slots, res)
+    z, var = slots.z.clone(), slots.variance.clone()
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def joins():
+        for p in live:
+            refuse_join(keys, rows, z, var, p, total)
+
+    k4_ms = graph_ms(joins, 5) / len(live)
+    b_ms, b_by = bound(k4_bytes(keys, rounds, valid, fused) / len(live))
+    sort_ms = cuda_ms(lambda: lc._sorted_keys(slots, res), 10)
+
+    rd = torch.as_tensor(rounds, device=dev).long()
+    vd = torch.as_tensor(valid, device=dev)
+    pad = lambda a: torch.cat([a, a.new_zeros((1, C))])
+    zp, vp = pad(slots.z), pad(slots.variance)
+
+    def plain_round():
+        i, j, ok = rd[0, :, 0], rd[0, :, 1], vd[0]
+        az, av, bz, bv, _ = lc._refuse(
+            zp[i], vp[i], slots.x[i], slots.y[i], slots.valid[i],
+            zp[j], vp[j], slots.x[j], slots.y[j], slots.valid[j], res)
+        ti, tj = torch.where(ok, i, K), torch.where(ok, j, K)
+        zp[ti], vp[ti] = az, av
+        zp[tj], vp[tj] = bz, bv
+
+    plain_ms = graph_ms(plain_round, 3)
+    event = {"k4": [], "plain": []}
+    for rep in range(6):
+        for side in (("k4", "plain") if rep % 2 == 0 else ("plain", "k4")):
+            fn = lc.refuse_rounds if side == "k4" else lc.refuse_rounds_plain
+            torch.cuda.synchronize()
+            event[side].append(timed(
+                lambda: fn(slots, rounds, valid, res), True)[1])
+    med = {k: statistics.median(v[1:]) for k, v in event.items()}
+    print(f"phase 14 K4 refuse_join K={K} C={C} pairs={len(pairs)} rounds="
+          f"{rounds.shape[0]} ({len(live)} with a pair) fused={fused}: ok "
+          f"z_variance_count=bitwise launches={launches} kernel_ms_per_launch"
+          f"={k4_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share="
+          f"{b_ms / k4_ms:.2f} key_sort_ms={sort_ms:.4f} plain_round_ms="
+          f"{plain_ms:.4f} event_ms_median(host, synced) k4={med['k4']:.3f} "
+          f"plain={med['plain']:.3f}", flush=True)
+    return {"name": "refuse_join", "route": "cuda",
+            "source": "gem_tpu_torch/csrc/refuse_join.cu",
+            "replaces": "none: added for the re-stitch join",
+            "launches": launches, "launches_per_event": launches,
+            "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "key_sort_ms": sort_ms, "event_ms": med["k4"],
+            "plain_event_ms": med["plain"]}
+
+
 def single_pipelines(cfg, streams, dev, backend):
     """Each robot's frames through an ElevationPipeline of its own, with
     the fleet's config: the reference a fleet robot must equal."""
@@ -2577,6 +2689,7 @@ def main():
     phase_global_map_cli(dev)
     phase_global_map(dev, cloud)
     del cloud
+    k4 = phase_k4(dev)
     fleets, fleet_graph = phase_fleet(dev, graph_ms["stream"])
     phase_fleet_cli(dev)
     phase_distributed(dev, *fleets["stream"][:2])
@@ -2635,6 +2748,7 @@ def main():
             "max_abs_err": err, "ms": ms_, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "four_single_launches_ms": singles})
+    kernels.append(k4)
     print(f"flagship step_ms_median graph stream={graph_ms['stream'][0]:.3f} "
           f"pallas={graph_ms['pallas'][0]:.3f}, eager stream="
           f"{graph_ms['stream'][1]:.3f} pallas={graph_ms['pallas'][1]:.3f} "

@@ -12,6 +12,12 @@ distance matrix, and the per-pair cell join is a sort-merge join: one stable
 sort of the 2C packed keys `key << 1 | tag` (int64, so it cannot overflow)
 per pair, then adjacent-row matching.  The pairs of a round are
 vertex-disjoint, so a round is one batched sort over its (P, 2C) keys.
+That is the plain join (`refuse_rounds_plain`, CPU tensors).  On CUDA
+tensors a slot's keys, which depend only on its x, y and valid, are sorted
+once per event (`_sorted_keys`) and each round with a valid pair is one
+launch of kernel K4 (kernels/refuse_join.py), which joins last a row
+against first b row, the rows the plain join's sort makes adjacent: the
+same z, variance and count, bitwise.
 
 Each `apply_loop_closure` call is one unit of the tracer
 (utils/observability.py): the span `gem.restitch.apply` around it, with
@@ -20,7 +26,8 @@ children `gem.restitch.corrections`, `.transform`, `.select_pairs`,
 `gem.restitch.read` around each device->host read and a
 `gem.restitch.upload` around each host->device copy (both wait for every
 operation queued before them), counted as `restitch.reads` and
-`restitch.uploads`; stamps `refuse` and `refused` around `refuse_rounds`.
+`restitch.uploads`; stamps `refuse` and `refused` around `refuse_rounds`;
+on the card, the counter `restitch.joins` for each K4 launch.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from gem_tpu_torch.global_map.submaps import PointBuffer, SubmapStore
+from gem_tpu_torch.kernels.refuse_join import refuse_join
 from gem_tpu_torch.motion.updater import quat_to_rotmat
 from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.precision import f32_recip
@@ -177,12 +185,56 @@ def refuse_rounds(slots: PointBuffer, rounds, rounds_valid,
     """Re-fuse pairs in vertex-disjoint rounds: within a round every pair
     touches different submaps, so a round is one batched join and one masked
     write-back; rounds run in order.  Equal to the sequential `refuse_pair`
-    chain taken in round-major order.
+    chain taken in round-major order.  CUDA tensors go to K4
+    (`_refuse_rounds_sorted`), others to `refuse_rounds_plain`; the
+    caller's tensors are not written.
 
     rounds       : (R, P, 2) slot indices (int tensor or array)
     rounds_valid : (R, P) bool — padding lanes are no-ops
     Returns (slots, total fused cells as a 0-d int tensor).
     """
+    if slots.z.device.type == "cuda":
+        return _refuse_rounds_sorted(slots, rounds, rounds_valid, resolution)
+    return refuse_rounds_plain(slots, rounds, rounds_valid, resolution)
+
+
+def _sorted_keys(slots: PointBuffer, resolution: float):
+    """Each slot's cell keys sorted, stably: ((K, C) int64 keys, (K, C)
+    int32 source rows).  An invalid row's key is _A_INVALID, which never
+    fuses.  One flat stable sort of `slot << 32 | key` (keys are below
+    2^32), which is each slot's own stable sort, in one radix sort."""
+    K, C = slots.x.shape
+    key = torch.where(slots.valid, _pack(*_quantize(slots.x, slots.y,
+                                                    resolution)), _A_INVALID)
+    slot = torch.arange(K, device=key.device)[:, None]
+    flat, order = torch.sort((key | slot << 32).reshape(-1), stable=True)
+    return ((flat & 0xFFFFFFFF).reshape(K, C),
+            (order.reshape(K, C) - slot * C).to(torch.int32))
+
+
+def _refuse_rounds_sorted(slots: PointBuffer, rounds, rounds_valid,
+                          resolution: float):
+    """`refuse_rounds` on the card: the keys sorted once, then one K4
+    launch per round with a valid pair, on clones of z and variance."""
+    rounds = np.asarray(rounds)
+    valid = np.asarray(rounds_valid, dtype=bool)
+    keys, rows = _sorted_keys(slots, resolution)
+    z = slots.z.clone(memory_format=torch.contiguous_format)
+    var = slots.variance.clone(memory_format=torch.contiguous_format)
+    total = torch.zeros((), dtype=torch.int64, device=z.device)
+    for r in range(rounds.shape[0]):
+        with TRACER.span("gem.restitch.round"):
+            if valid[r].any():
+                TRACER.count("restitch.joins", refuse_join(
+                    keys, rows, z, var, rounds[r][valid[r]], total))
+    return slots.replace(z=z, variance=var), total
+
+
+def refuse_rounds_plain(slots: PointBuffer, rounds, rounds_valid,
+                        resolution: float):
+    """The plain `refuse_rounds`: each round one batched `_refuse` over its
+    (P, C) lanes, padding lanes included, and an indexed write-back (the
+    padding lanes' into a dump row)."""
     dev = slots.z.device
     K, C = slots.z.shape
     rounds = _upload(np.asarray(rounds), dev).long()

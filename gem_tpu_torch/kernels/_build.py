@@ -73,6 +73,11 @@ _SIGNATURES = {
     # the tracer's stamp (utils/observability.py): stream, ring (int64),
     # row counter (int64), rows, columns, column, advance
     "gem_trace_stamp": (_P, _P, _P, _L, _I, _I, _I),
+    # K4 (csrc/refuse_join.cu): pairs (host int32), pairs, sorted keys,
+    # source rows, z, variance, C, total (int64), stream, kernels launched
+    # (out)
+    "gem_refuse_join": (_P, _I, _P, _P, _P, _P, _I, _P, _P,
+                        ctypes.POINTER(_I)),
 }
 
 

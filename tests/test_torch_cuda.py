@@ -1,5 +1,6 @@
 """The CUDA kernel wrappers: K1 `fuse_stream_aggregate`, K2
-`plane_fit_features` and K3 `segment_stats_sorted`.
+`plane_fit_features`, K3 `segment_stats_sorted` and K4 `refuse_join` (the
+re-stitch's pair join, through `loop_closure.refuse_rounds`).
 
 This file imports no jax, so on a machine with a card it runs without the
 suite's conftest:
@@ -10,7 +11,7 @@ Tests that need the card take the `cuda` fixture and skip without one.  On
 the card each kernel is held against its plain PyTorch version: selection
 outputs bitwise, K1's two gated sums W and WH and K3's sums (f32 sums that
 the plain version adds with atomics in no fixed order) to 1e-5 relative,
-and K2's five planes bitwise.
+and K2's five planes bitwise; K4's z, variance and fused count bitwise.
 """
 
 import dataclasses
@@ -1290,3 +1291,224 @@ def test_program_stamps_every_replayed_frame(cuda, tracer):
     assert len(pipe._program._graphs) == 1
     assert tracer.counts["program.graphs_dropped"] == 1  # counted while on
     assert tracer.counts["program.captures"] == 2
+
+
+# --- K4, the re-stitch's pair join (kernels/refuse_join.py)
+
+def _join_slots(K, C, res, seed, span=6, valid_frac=0.85, aliased=False):
+    """(K, C) slots at cell centers of a (2 span)^2 patch, so each slot
+    repeats cells and every pair shares many; variances partly outside the
+    gate (0, 1).  `aliased` puts rows in every slot at the cells whose
+    packed keys are 0xFFFFFFFE (qx = -1, qy = -2) and 0xFFFFFFFF (qx = qy =
+    -1), which must never fuse."""
+    from gem_tpu_torch.global_map.submaps import PointBuffer
+
+    rng = np.random.default_rng(seed)
+    qx = rng.integers(-span, span, (K, C))
+    qy = rng.integers(-span, span, (K, C))
+    if aliased:
+        qx[:, :C // 8], qy[:, :C // 8] = -1, -2
+        qx[:, C // 8:C // 4], qy[:, C // 8:C // 4] = -1, -1
+    f = {"x": (qx - 0.5) * res, "y": (qy - 0.5) * res,
+         "z": rng.normal(0, 1, (K, C)),
+         "variance": rng.uniform(0.02, 1.3, (K, C)),
+         "intensity": rng.random((K, C)), "traver": rng.random((K, C))}
+    f = {k: torch.from_numpy(v.astype(np.float32)) for k, v in f.items()}
+    return PointBuffer(**f, color=torch.zeros((K, C), dtype=torch.int32),
+                       valid=torch.from_numpy(rng.random((K, C))
+                                              < valid_frac))
+
+
+def _join_case(case):
+    """(slots on the CPU, rounds (R, P, 2), valid (R, P), resolution)."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+
+    res = 0.1
+    if case == "duplicates":
+        slots = _join_slots(6, 1000, res, 1)
+        rounds, valid = lc.schedule_rounds(
+            [(0, 1), (1, 0), (1, 2), (0, 2), (2, 3), (3, 4), (4, 5), (2, 0),
+             (5, 0)])
+    elif case == "aliased_keys":
+        slots = _join_slots(4, 777, res, 2, aliased=True)
+        rounds, valid = lc.schedule_rounds([(0, 1), (2, 3), (1, 2), (3, 0)])
+    elif case == "padding":
+        # padding lanes (slot 0 with itself) in every round, an
+        # all-padding round between two real ones and one at the end
+        slots = _join_slots(5, 300, res, 3, valid_frac=0.6)
+        rounds = np.zeros((4, 4, 2), np.int32)
+        valid = np.zeros((4, 4), bool)
+        rounds[0, :2], valid[0, :2] = [(1, 2), (3, 4)], True
+        rounds[2, 1:3], valid[2, 1:3] = [(4, 1), (2, 0)], True
+    elif case == "one_row_blocks":
+        # C = 257: one full block of 256 rows and a block of one row
+        slots = _join_slots(3, 257, res, 4, span=3)
+        rounds, valid = lc.schedule_rounds([(0, 1), (1, 2), (2, 0)])
+    else:
+        raise ValueError(case)
+    return slots, rounds, valid, res
+
+
+_JOIN_CASES = ("duplicates", "aliased_keys", "padding", "one_row_blocks")
+
+
+def _sorted_key_join(slots, rounds, valid, res):
+    """K4's rule in NumPy, pair by pair: for each key below 0xFFFFFFFE in
+    both slots, the last a row of its sorted run against the first b row,
+    gated on the a row's variance in (0, 1); float32 throughout."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+
+    keys, rows = (t.numpy() for t in lc._sorted_keys(slots, res))
+    z, var = slots.z.numpy().copy(), slots.variance.numpy().copy()
+    total = 0
+    for r in range(rounds.shape[0]):
+        for i, j in rounds[r][valid[r]]:
+            ka, kb = keys[i], keys[j]
+            ends = np.nonzero(np.append(ka[1:] != ka[:-1], True)
+                              & (ka < 0xFFFFFFFE))[0]
+            q = np.searchsorted(kb, ka[ends])
+            hit = q < kb.size
+            hit[hit] &= kb[q[hit]] == ka[ends[hit]]
+            ra, rb = rows[i][ends[hit]], rows[j][q[hit]]
+            v_old, h_old = var[i, ra], z[i, ra]
+            v_new, h_new = var[j, rb], z[j, rb]
+            gate = (v_old > 0) & (v_old < 1)
+            s = v_old + v_new
+            denom = np.where(s < np.float32(1e-12), np.float32(1e-12), s)
+            fz = (v_old * h_new + v_new * h_old) / denom
+            fv = v_old * v_new / denom
+            z[i, ra[gate]], var[i, ra[gate]] = fz[gate], fv[gate]
+            z[j, rb[gate]], var[j, rb[gate]] = fz[gate], fv[gate]
+            total += int(gate.sum())
+    return z, var, total
+
+
+@pytest.mark.parametrize("case", _JOIN_CASES)
+def test_sorted_key_join_rule_equals_the_plain_join(case):
+    """K4's join rule over keys sorted once per event (last a row against
+    first b row, keys >= 0xFFFFFFFE never fused) is the plain per-round
+    sort-merge join, bitwise, on the CPU."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+
+    slots, rounds, valid, res = _join_case(case)
+    got_z, got_v, n = _sorted_key_join(slots, rounds, valid, res)
+    want, nf = lc.refuse_rounds_plain(slots, rounds, valid, res)
+    assert n == int(nf) > 0
+    np.testing.assert_array_equal(got_z, want.z.numpy())
+    np.testing.assert_array_equal(got_v, want.variance.numpy())
+
+
+def test_refuse_rounds_routes_cpu_tensors_to_the_plain_join(monkeypatch):
+    """CPU tensors take the plain join (`_refuse` once per round, padding
+    rounds too) and never K4; the sharded sweep still imports `_refuse`
+    and calls it."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.global_map import sharded
+    from gem_tpu_torch.kernels.refuse_join import refuse_join
+
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return plain(*args)
+
+    plain = lc._refuse
+    slots, rounds, valid, res = _join_case("padding")
+    before = refuse_join.launches
+    monkeypatch.setattr(lc, "_refuse", spy)
+    got, nf = lc.refuse_rounds(slots, rounds, valid, res)
+    assert len(calls) == rounds.shape[0]
+    monkeypatch.undo()
+    want, wnf = lc.refuse_rounds_plain(slots, rounds, valid, res)
+    assert torch.equal(got.z, want.z) and int(nf) == int(wnf) > 0
+    assert refuse_join.launches == before
+
+    assert sharded._refuse is plain
+    calls.clear()
+    monkeypatch.setattr(sharded, "_refuse", spy)
+    cfg = benchmark_config(length=64, max_points=256)
+    cfg = cfg.replace(submap=dataclasses.replace(
+        cfg.submap, max_submaps=4, capacity=300))
+    store, poses = _ring_store(cfg, "cpu")
+    opt = poses.copy()
+    opt[1:, :2] += 0.1
+    _, stats = sharded.apply_sharded_loop_closure(store, cfg, opt)
+    assert len(calls) == 4 and stats["n_cells_fused"] > 0
+    assert refuse_join.launches == before
+
+
+def test_refuse_join_refuses_other_devices():
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.kernels.refuse_join import refuse_join
+
+    slots, rounds, valid, res = _join_case("padding")
+    keys, rows = lc._sorted_keys(slots, res)
+    with pytest.raises(ValueError, match="unsupported device"):
+        refuse_join(keys, rows, slots.z, slots.variance, rounds[0][valid[0]],
+                    torch.zeros((), dtype=torch.int64))
+
+
+def _on(slots, device):
+    return type(slots)(**{f.name: getattr(slots, f.name).to(device)
+                          for f in dataclasses.fields(slots)})
+
+
+def _k4_against_plain(slots, rounds, valid, res):
+    """K4's `refuse_rounds` on the card against the plain join on the card,
+    bitwise; the caller's tensors unchanged; one launch per round with a
+    valid pair.  Returns the fused-cell count."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.kernels.refuse_join import refuse_join
+
+    kept = {f: getattr(slots, f).clone() for f in ("x", "y", "z", "variance",
+                                                   "valid")}
+    before = refuse_join.launches
+    got, nf = lc.refuse_rounds(slots, rounds, valid, res)
+    assert refuse_join.launches - before == int(valid.any(axis=1).sum())
+    again, nf2 = lc.refuse_rounds(slots, rounds, valid, res)
+    want, wnf = lc.refuse_rounds_plain(slots, rounds, valid, res)
+    assert int(nf) == int(nf2) == int(wnf)
+    for k in ("z", "variance"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+        assert torch.equal(getattr(got, k), getattr(again, k)), k
+    for k, v in kept.items():
+        assert torch.equal(getattr(slots, k), v), k
+    return int(nf)
+
+
+@pytest.mark.parametrize("case", _JOIN_CASES)
+def test_k4_refuse_rounds_equals_the_plain_join_on_card(cuda, case):
+    slots, rounds, valid, res = _join_case(case)
+    assert _k4_against_plain(_on(slots, cuda), rounds, valid, res) > 0
+
+
+def test_k4_full_ring_equals_the_plain_join_on_card(cuda, monkeypatch):
+    """The flagship ring (64 x 32768) at `benchmark_config()`'s overlap
+    radius: `refuse_rounds` and a whole `apply_loop_closure` (stats, z,
+    variance) as with the plain join, and the caller's store unchanged."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.global_map import loop_closure as lc
+
+    cfg = benchmark_config()
+    K = cfg.submap.max_submaps
+    store, poses = _ring_store(cfg, cuda)
+    res = cfg.submap.dedup_cell_quantum or cfg.map.resolution
+    pairs = lc.select_pairs(poses[:, :2], cfg.submap.overlap_radius,
+                            cfg.submap.max_pairs_per_submap)
+    rounds, valid = lc.schedule_rounds(pairs)
+    assert len(pairs) == K * cfg.submap.max_pairs_per_submap
+    assert _k4_against_plain(store.slots, rounds, valid, res) > 0
+
+    rng = np.random.default_rng(5)
+    opt = poses.copy()
+    opt[1:, :2] += cfg.map.resolution * rng.integers(-3, 4, (K - 1, 2))
+    kept = [t.clone() for t in (store.slots.z, store.slots.variance)]
+    got, stats = lc.apply_loop_closure(store, cfg, opt)
+    monkeypatch.setattr(lc, "_refuse_rounds_sorted", lc.refuse_rounds_plain)
+    want, wstats = lc.apply_loop_closure(store, cfg, opt)
+    assert stats == wstats and stats["n_cells_fused"] > 0
+    for k in ("x", "y", "z", "variance"):
+        assert torch.equal(getattr(got.slots, k), getattr(want.slots, k)), k
+    assert torch.equal(store.slots.z, kept[0])
+    assert torch.equal(store.slots.variance, kept[1])
