@@ -32,6 +32,11 @@ one of three routes, chosen from `pred` alone:
 There is no fallback: a capture that cannot make its IF nodes raises
 `BranchError`, naming the branch, and never turns into a select.
 
+Each `cond` or `when` that takes the select route counts `control.selects`
+(utils/observability.py `TRACER`): the masked bodies a frame runs whatever
+its predicate.  A captured graph holds its selects, and `DeviceProgram`
+counts them again on each replay (utils/graph.py).
+
 The bodies' allocations go to one private memory pool per device, shared by
 every graph, as one `DeviceProgram`'s graphs share its pool: the graphs are
 replayed one at a time.  `IF_NODES` lists every IF node captured, with the
@@ -49,6 +54,7 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.tree import tree_leaves, tree_map, tree_select
 
 
@@ -88,6 +94,7 @@ def cond(pred, true_fn, false_fn, *operands):
     if kind == "branch":
         return (true_fn if bool(pred) else false_fn)(*operands)
     if kind == "select":
+        TRACER.count("control.selects")
         _warm_up(pred)
         return tree_select(pred, true_fn(*operands), false_fn(*operands))
     name = f"cond({_name(true_fn)}, {_name(false_fn)})"
@@ -104,6 +111,7 @@ def when(pred, fn, *operands):
     (R,) or () `mask` is False."""
     kind = route(pred)
     if kind == "select":
+        TRACER.count("control.selects")
         _warm_up(pred)
         return fn(*operands, when=pred)
     if kind == "branch":

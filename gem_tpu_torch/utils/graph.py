@@ -37,7 +37,9 @@ Each call is one unit of the tracer (utils/observability.py): spans
 `gem.program.copy_in`, `gem.program.replay` and `gem.program.copy_out`
 (on the CPU the call itself is the replay and the copy spans are empty),
 `gem.program.capture` around a first call's eager run and capture; counters
-`program.replays`, `program.captures` and `program.graphs_dropped`; stamps
+`program.replays`, `program.captures` and `program.graphs_dropped`, and on
+each replay what the function counted while it was captured (a fleet's
+`control.selects`), so a replay counts what an eager call does; stamps
 `program.in` before the input copies, `write_back` before the write-back
 and `program.out` after the output copies.  The graphs hold the stamps
 exactly while the tracer is on: turning it on or off drops them, to be
@@ -158,7 +160,7 @@ class DeviceProgram:
                                      f"{t.device}, the state on {dev}")
             with TRACER.span("gem.program.capture"):
                 return self._run_and_capture(fn, inputs, key)
-        graph, static_in, static_out = entry
+        graph, static_in, static_out, counted = entry
         TRACER.mark("program.in", dev)
         with TRACER.span("gem.program.copy_in"):
             for dst, src in zip(static_in, leaves.values()):
@@ -166,6 +168,8 @@ class DeviceProgram:
         with TRACER.span("gem.program.replay"):
             graph.replay()
         TRACER.count("program.replays")
+        for name, n in counted.items():
+            TRACER.count(name, n)
         with TRACER.span("gem.program.copy_out"):
             out = tree_map(torch.clone, static_out)
         TRACER.mark("program.out", dev)
@@ -184,7 +188,8 @@ class DeviceProgram:
         buffers = {_storage(t) for t in tree_leaves(self._buffers).values()}
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool), \
+                    TRACER.tally() as counted:
                 new_state, static_out = fn(self._buffers, static_in)
                 TRACER.mark("write_back", self.device)
                 # an output that is a state buffer would be read after the
@@ -202,6 +207,6 @@ class DeviceProgram:
             raise RuntimeError(f"DeviceProgram: CUDA graph capture of "
                                f"{name} failed: {cause or e}") from e
         self._graphs[key] = (graph, list(tree_leaves(static_in).values()),
-                             static_out)
+                             static_out, counted)
         TRACER.count("program.captures")
         return out

@@ -31,7 +31,10 @@ its id; a unit entered inside another joins it.
 
 Spans and counters are kept while the tracer is on and while a
 torch.profiler records; `log` keeps each of them, with its unit, only
-while a profiler records (the profiled slice of a benchmark run).  Marks
+while a profiler records (the profiled slice of a benchmark run).  Inside
+`tally()` counts go to the block's own dict instead, whatever the tracer's
+state: a CUDA graph's capture, whose counts `DeviceProgram` repeats on
+each replay (`control.selects`, the select-routed branches).  Marks
 stamp only while the tracer is on; a `DeviceProgram` drops its graphs and
 captures again when the tracer is turned on or off, so its graphs hold
 stamps exactly while it is on.  Off, and with no profiler, each call is
@@ -125,6 +128,7 @@ class Tracer:
     def __init__(self):
         self.on = False
         self._rings: dict = {}           # device -> (ring, row counter)
+        self._tally: Optional[dict] = None
         self.reset()
 
     def reset(self) -> None:
@@ -174,11 +178,24 @@ class Tracer:
             self.log.append(("span", name, self._unit_id(), t0, t1))
 
     def count(self, name: str, n: int = 1) -> None:
+        if self._tally is not None:
+            self._tally[name] = self._tally.get(name, 0) + n
+            return
         if not (self.on or _profiling()):
             return
         self.counts[name] = self.counts.get(name, 0) + n
         if _profiling():
             self.log.append(("count", name, self._unit_id(), n))
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Count the block's counters into the dict it yields, and nowhere
+        else, whether the tracer is on or off."""
+        was, self._tally = self._tally, {}
+        try:
+            yield self._tally
+        finally:
+            self._tally = was
 
     # -- device stamps ------------------------------------------------------
     def mark(self, stage: str, device) -> None:

@@ -1293,6 +1293,35 @@ def test_program_stamps_every_replayed_frame(cuda, tracer):
     assert tracer.counts["program.captures"] == 2
 
 
+def test_graph_replays_count_what_the_eager_call_counted(cuda, tracer):
+    """A fleet's captured graph counts on each replay the `control.selects`
+    that its eager first call counted (the window cond and the keyframe
+    finalize; staging is off in a fleet), so the counter is per unit on the
+    card as on the CPU; a single robot's replays, whose branches are IF
+    nodes, count none.  Read as the benchmark reads it: the tracer off, a
+    profiler recording."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+    from gem_tpu_torch.multirobot.fleet import FleetPipeline, stack_frames
+
+    cfg = _graph_cfg()
+    frames = _graph_frames(cfg, cuda)[:3]
+    fleet = FleetPipeline(cfg, 2, device=cuda)
+    single = ElevationPipeline(cfg, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for f in frames:
+            fleet.process(stack_frames([f, f]))
+        for f in frames:
+            single.process(f)
+    per_unit = [0] * 6
+    for rec in tracer.log:
+        if rec[0] == "count" and rec[1] == "control.selects":
+            per_unit[rec[2]] += rec[3]
+    assert per_unit[:3] == [2, 2, 2], per_unit
+    assert per_unit[3] > 0 and per_unit[4:] == [0, 0], per_unit
+
+
 # --- K4, the re-stitch's pair join (kernels/refuse_join.py)
 
 def _join_slots(K, C, res, seed, span=6, valid_frac=0.85, aliased=False):

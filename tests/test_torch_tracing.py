@@ -144,6 +144,59 @@ def test_a_fleet_stamps_both_sides_of_its_bodies():
         assert taken(ring[r], "move", "finalize")
 
 
+@pytest.mark.parametrize("robots", [2, 1], ids=["fleet", "single"])
+def test_select_routed_branches_are_counted_per_unit(robots, monkeypatch):
+    """`control.selects` counts, per unit, each cond or when that took the
+    select route: a 2-robot fleet's window cond, raytrace cadence and
+    keyframe finalize on every fleet frame (its staging is off); one robot
+    on the CPU branches and counts none.  Read as the benchmark reads it:
+    the tracer off, a profiler recording."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gem_tpu_torch.multirobot.fleet import FleetPipeline
+    from gem_tpu_torch.utils import control
+
+    routes = []
+    real = control.route
+    monkeypatch.setattr(control, "route",
+                        lambda pred: routes.append(real(pred)) or routes[-1])
+    cfg = _cfg()
+    frames = _frames(cfg, 4)
+    if robots > 1:
+        pipe = FleetPipeline(cfg, robots, device="cpu")
+        frames = [stack_frames([f] * robots) for f in frames]
+    else:
+        pipe = ElevationPipeline(cfg, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]):
+        for f in frames:
+            pipe.process(f)
+    per_unit = [0] * len(frames)
+    for rec in TRACER.log:
+        if rec[0] == "count" and rec[1] == "control.selects":
+            per_unit[rec[2]] += rec[3]
+    assert TRACER.units == len(frames)
+    assert sum(per_unit) == routes.count("select")
+    assert per_unit == [3 if robots > 1 else 0] * len(frames)
+
+
+def test_a_tally_keeps_its_counts_from_the_tracer():
+    """Inside `tally()` counts go to its dict alone, the tracer on or off
+    (what `DeviceProgram` keeps with a captured graph)."""
+    TRACER.enable()
+    with TRACER.tally() as counted:
+        TRACER.count("control.selects", 2)
+        TRACER.count("control.selects")
+    TRACER.count("program.replays")
+    assert counted == {"control.selects": 3}
+    assert TRACER.counts == {"program.replays": 1}
+    TRACER.enable(False)
+    with TRACER.tally() as counted:
+        TRACER.count("control.selects")
+    TRACER.count("control.selects")
+    assert counted == {"control.selects": 1}
+    assert TRACER.counts == {"program.replays": 1}
+
+
 def test_stage_ns_reads_its_stretches_and_drops_stale_ones():
     row = np.zeros(len(STAGES), np.int64)
     for i, s in enumerate(["program.in", "move", "pointproc", "fuse",
