@@ -44,7 +44,9 @@ host's launch overhead is left out):
      and accuracy checks and each kernel's launches counted on the device
      (torch.profiler's kernel events by the kernels' symbols: a replayed
      graph does not call the wrappers): the stream path (K1, K2), then the
-     pallas path (K3, K2);
+     pallas path (K3, K2); K5 on both, three times on the eager first
+     frame, then once a taken flush body and twice a taken finalize body
+     (its staged flush, the grid snapshot);
   9. the CLI in-process: `run` at the benchmark preset with the pallas
      backend and every product, a resume from its checkpoint (with the
      .bt octomap export), and the kitti preset (orthomosaics stored, the
@@ -61,8 +63,9 @@ host's launch overhead is left out):
      counts and speeds, 10 frames) through `FleetPipeline` (one CUDA graph
      of one batched step per fleet frame) on the stream path, each robot
      bitwise a separate ElevationPipeline on its frames, K1 and K2
-     launched once per fleet frame (counted on the device); the same on
-     the pallas path (K3 five times and K2 once per fleet frame); then the
+     launched once per fleet frame and K5 twice (counted on the device);
+     the same on the pallas path (K3 five times, K2 once and K5 twice per
+     fleet frame); then the
      README's
      loop-detect command (`fleet --robots 2 --frames 80 --world-seed 3
      --drift-yaw 8 --drift-x 1.0 --loop-detect --publish-interpr`) on the
@@ -103,6 +106,13 @@ host's launch overhead is left out):
      launches counted; K4's ms per launch (one CUDA graph) beside its byte
      bound, the key sort's ms, a plain round's ms (one CUDA graph), and
      both joins' event ms on the host clock, in turns.
+ 15. K5 (compact_append), the submap store's compaction, at the main path's
+     shapes (the fleet's (4, 10^6) finalize and (4, 64000) shed append,
+     the single robot's 10^6-point finalize and 2,048,000-point staging
+     flush, into 32768 rows): against its plain version on the card,
+     bitwise in every field, the count and dropped, launches counted; its
+     ms in one CUDA graph beside its byte bound, eager, and the plain
+     version's ms in one CUDA graph.
 Each kernel line gives its bound: the least time the card takes to move
 the bytes the call needs and do its fp32 operations (`bound`).  Then the
 step and fleet-frame medians, one JSON line of per-kernel results (its
@@ -1729,6 +1739,141 @@ def phase_k4(dev):
             "plain_event_ms": med["plain"]}
 
 
+def compact_inputs(lead, n, C, dev, seed):
+    """(buf, count, new) on the card for K5: random fields (colors across
+    int32 below 2^31 - 64), 60% of the inputs valid, half the buffer's
+    rows valid, uneven counts (C // 3, 0, C - 5, C // 2 by row)."""
+    from gem_tpu_torch.global_map.submaps import PointBuffer
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R = int(np.prod(lead, dtype=np.int64))
+
+    def points(m, frac):
+        f = {k: torch.randn((R, m), generator=g, device=dev)
+             for k in ("x", "y", "z", "variance", "intensity", "traver")}
+        f["color"] = torch.randint(-2 ** 31, 2 ** 31 - 64, (R, m),
+                                   generator=g, device=dev,
+                                   dtype=torch.int32)
+        f["valid"] = torch.rand((R, m), generator=g, device=dev) < frac
+        return PointBuffer(**{k: v.reshape(lead + (m,))
+                              for k, v in f.items()})
+
+    count = torch.tensor([C // 3, 0, C - 5, C // 2][:R], dtype=torch.int32,
+                         device=dev).reshape(lead)
+    return points(C, 0.5), count, points(n, 0.6)
+
+
+def compact_bytes(count, new, C, appended):
+    """K5's least bytes: the inputs' valid flags (one byte each), the
+    taken inputs' 28 bytes, the buffer's rows that stay (29 bytes each),
+    every output row written (29 bytes), the counts read and written."""
+    rows = count.numel()
+    taken = int(appended.sum())
+    return (new.valid.numel() + 28 * taken + 29 * (rows * C - taken)
+            + 29 * rows * C + 12 * rows)
+
+
+def compact_flat_cumsum(buf, count, new):
+    """The plain compaction with the one change that needs no kernel: the
+    ranks from one cumsum of every leading index's flags flattened (a 1-D
+    tensor, which takes cub's device scan, where (rows, n) takes PyTorch's
+    row scan, one block a row), each index's offset subtracted after.
+    Bitwise `compact_append_plain`; timed beside K5."""
+    from gem_tpu_torch.utils.tree import flat_rows
+
+    C, n = buf.capacity, new.valid.shape[-1]
+    flat = torch.cumsum(new.valid.reshape(-1), 0, dtype=torch.int32)
+    ends = flat[n - 1::n]
+    offset = torch.cat([ends.new_zeros(1), ends[:-1]])
+    ranks = (flat.reshape(-1, n) - offset[:, None]).reshape(
+        new.valid.shape)
+    total = ranks[..., -1]
+    appended = torch.clamp(torch.minimum(total, C - count), min=0)
+    rank = torch.arange(C, dtype=torch.int32, device=ranks.device) \
+        - count[..., None]
+    take = (rank >= 0) & (rank < appended[..., None])
+    src = flat_rows(torch.clamp(torch.searchsorted(ranks, rank + 1),
+                                max=n - 1), n)
+    pick = lambda f: torch.where(take, getattr(new, f).reshape(-1)[src],
+                                 getattr(buf, f))
+    out = type(buf)(
+        x=pick("x"), y=pick("y"), z=pick("z"), variance=pick("variance"),
+        intensity=pick("intensity"), traver=pick("traver"),
+        color=pick("color").to(torch.float32).to(torch.int32),
+        valid=take | buf.valid)
+    return out, count + appended, total - appended
+
+
+def phase_k5(dev):
+    """Phase 15: K5 (`compact_append`, csrc/compact_append.cu), the submap
+    store's compaction, at the main path's shapes: the fleet's masked
+    keyframe finalize (4, L*L) and shed append (4, band), the single
+    robot's finalize (L*L,) and staging flush (S * band,), into the
+    flagship's 32768-row accumulator.  Each against the plain version on
+    the card, bitwise in every field, the count and dropped, one launch
+    counted per call; K5's ms (20 calls in one CUDA graph) beside its byte
+    bound, the eager call's ms, and the ms (in one CUDA graph) of the
+    plain version and of the plain version with one flat cumsum
+    (`compact_flat_cumsum`, bitwise too).  Returns K5's row of the kernel
+    table (the fleet finalize)."""
+    from gem_tpu_torch.config import benchmark_config
+    from gem_tpu_torch.kernels.compact import (compact_append,
+                                               compact_append_plain)
+
+    cfg = benchmark_config()
+    C, L = cfg.submap.capacity, cfg.map.length
+    band = 2 * cfg.map.max_shift_cells * L
+    shapes = [("fleet_finalize", (4,), L * L), ("fleet_shed", (4,), band),
+              ("single_finalize", (), L * L),
+              ("single_flush", (), cfg.submap.staging_frames * band)]
+    rows = {}
+    for seed, (name, lead, n) in enumerate(shapes, start=15):
+        buf, count, new = compact_inputs(lead, n, C, dev, seed)
+        before = compact_append.launches
+        got = compact_append(buf, count, new)
+        again = compact_append(buf, count, new)
+        want = compact_append_plain(buf, count, new)
+        flat = compact_flat_cumsum(buf, count, new)
+        torch.cuda.synchronize()
+        fail_unless(compact_append.launches - before == 2,
+                    f"K5 {name}: {compact_append.launches - before} "
+                    f"launches counted for 2 calls")
+        for f in ("x", "y", "z", "variance", "intensity", "traver", "color",
+                  "valid"):
+            a, b, c, d = (getattr(o[0], f)
+                          for o in (got, again, want, flat))
+            eq = bitwise_equal if a.dtype == torch.float32 else torch.equal
+            fail_unless(eq(a, c) and eq(a, b) and eq(d, c),
+                        f"K5 {name}: {f} differs from the plain version "
+                        f"or between two calls (or the flat cumsum's)")
+        fail_unless(all(torch.equal(o[k], want[k]) for k in (1, 2)
+                        for o in (got, flat)),
+                    f"K5 {name}: count or dropped differ")
+        appended = got[1] - count
+        k5_ms = graph_ms(lambda: compact_append(buf, count, new), 20)
+        eager_ms = cuda_ms(lambda: compact_append(buf, count, new), 20)
+        plain_ms = graph_ms(lambda: compact_append_plain(buf, count, new), 5)
+        flat_ms = graph_ms(lambda: compact_flat_cumsum(buf, count, new), 5)
+        b_ms, b_by = bound(compact_bytes(count, new, C, appended))
+        rows[name] = (k5_ms, b_ms, b_by, plain_ms, eager_ms, flat_ms)
+        print(f"phase 15 K5 compact_append {name} lead={lead} n={n} C={C} "
+              f"appended={appended.tolist()} dropped={got[2].tolist()}: ok "
+              f"fields_count_dropped=bitwise kernel_ms={k5_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) share={b_ms / k5_ms:.2f} "
+              f"eager_ms={eager_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"flat_cumsum_ms={flat_ms:.4f}", flush=True)
+    k5_ms, b_ms, b_by, plain_ms, eager_ms, _ = rows["fleet_finalize"]
+    return {"name": "compact_append", "route": "cuda",
+            "source": "gem_tpu_torch/csrc/compact_append.cu",
+            "replaces": "none: added for the submap compaction",
+            "max_abs_err": 0.0, "ms": k5_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "eager_ms": eager_ms,
+            "shapes": {k: {"ms": v[0], "bound_ms": v[1], "plain_ms": v[3],
+                           "flat_cumsum_ms": v[5]}
+                       for k, v in rows.items()}}
+
+
 def single_pipelines(cfg, streams, dev, backend):
     """Each robot's frames through an ElevationPipeline of its own, with
     the fleet's config: the reference a fleet robot must equal."""
@@ -1785,7 +1930,8 @@ def phase_fleet(dev, single=None):
     `FleetPipeline` (one CUDA graph per fleet frame, one batched step over
     the robot axis) on the stream and on the pallas path, each robot
     bitwise a separate ElevationPipeline on its frames, each kernel
-    launched once per fleet frame (K3 five times); then phase 13's fleet
+    launched once per fleet frame (K3 five times, K5 twice); then phase
+    13's fleet
     check on the stream fleet's frames, beside `single`, phase 13's
     single-step numbers.  Returns ({backend: (fleet state, its config,
     launches, fleet-frame median)}, phase 13's fleet results)."""
@@ -1802,10 +1948,12 @@ def phase_fleet(dev, single=None):
     for backend in ("stream", "pallas"):
         fleet, counts, times, peak = fleet_run(cfg, streams, dev, backend)
         launches = counts["device"]
-        per = {"stream": (1, 1, 0), "pallas": (0, 1, 5)}[backend]
+        # K5 twice a fleet frame: the shed append, the masked finalize
+        per = {"stream": (1, 1, 0, 2), "pallas": (0, 1, 5, 2)}[backend]
         check_launches(counts, {k: n * T for k, n in zip(
             ("fuse_stream_aggregate", "plane_fit_features",
-             "segment_stats_sorted"), per)}, f"fleet {backend}")
+             "segment_stats_sorted", "compact_append"), per)},
+                       f"fleet {backend}")
         fleet_equals_singles(fleet, single_pipelines(cfg, streams, dev,
                                                      backend),
                              f"fleet {backend}")
@@ -1956,19 +2104,23 @@ def phase_distributed(dev, fleet, fleet_cfg):
 def kernel_wrappers():
     """Every kernel wrapper of the port, by name: each counts its launches
     in `.launches`."""
+    from gem_tpu_torch.kernels.compact import compact_append
     from gem_tpu_torch.kernels.features import plane_fit_features
     from gem_tpu_torch.kernels.fuse_stream import fuse_stream_aggregate
     from gem_tpu_torch.kernels.segment_stats import segment_stats_sorted
 
     return {"fuse_stream_aggregate": fuse_stream_aggregate,
             "plane_fit_features": plane_fit_features,
-            "segment_stats_sorted": segment_stats_sorted}
+            "segment_stats_sorted": segment_stats_sorted,
+            "compact_append": compact_append}
 
 
 # each wrapper's kernel, by the symbol the profiler names its launches with
+# (K5's second kernel: one a call)
 KERNEL_SYMBOLS = {"fuse_stream_aggregate": "fuse_stream_aggregate_kernel",
                   "plane_fit_features": "plane_fit_kernel",
-                  "segment_stats_sorted": "segment_stats_kernel"}
+                  "segment_stats_sorted": "segment_stats_kernel",
+                  "compact_append": "compact_scatter_kernel"}
 
 
 def device_events(prof):
@@ -2009,11 +2161,12 @@ def counted_launches():
 
 
 def check_launches(counts, want, what):
-    """The device counts equal `want` ({name: n}); every wrapper of a
-    kernel the path launches was called (eager first frame, capture), and
-    no other."""
-    fail_unless(counts["device"] == want, f"{what}: device launch counts "
-                f"{counts['device']}, expected {want}")
+    """The device counts of the kernels in `want` ({name: n}) equal it;
+    every wrapper of a kernel the path launches was called (eager first
+    frame, capture), and no other of them."""
+    got = {k: counts["device"][k] for k in want}
+    fail_unless(got == want, f"{what}: device launch counts {got}, "
+                f"expected {want}")
     fail_unless(all((counts["wrapper"][k] > 0) == (n > 0)
                     for k, n in want.items()),
                 f"{what}: wrapper calls {counts['wrapper']} for {want}")
@@ -2034,22 +2187,29 @@ def phase_flagship(dev, backend, frames, world):
                          "segment_stats_sorted": 0},
               "pallas": {"fuse_stream_aggregate": 0, "plane_fit_features": 1,
                          "segment_stats_sorted": 5}}[backend]
+    expect = {k: n * n_frames for k, n in expect.items()}
+    S = cfg.submap.staging_frames
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, sheds, fused = [], [], []
+    times, sheds, fused, bodies = [], [], [], []
     with counted_launches() as counts:
         pipe = ElevationPipeline(cfg, device=dev, fuse_backend=backend)
         for f in frames:
+            used = int(pipe.state.submaps.staging_used)
             t0 = time.perf_counter()
             out = pipe.process(f)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             sheds.append(int(out.metrics["shed_count"]))
             fused.append(int(out.metrics["cells_fused"]))
+            bodies.append((used + 1 >= S, bool(out.keyframe_due.any())))
     launches = counts["device"]
     st = pipe.state
-    check_launches(counts, {k: n * n_frames for k, n in expect.items()},
-                   f"flagship {backend}")
+    # K5: the eager first frame runs the flush's and the finalize's masked
+    # bodies (1 + 2 calls); a replay only the taken ones, a flush body one
+    # call, a finalize body two (its staged flush, the grid snapshot)
+    expect["compact_append"] = 3 + sum(fl + 2 * kf for fl, kf in bodies[1:])
+    check_launches(counts, expect, f"flagship {backend}")
     fail_unless(fused[-1] > 0, "flagship: no cells fused")
     fail_unless(max(sheds) > 0, "flagship: no band was ever shed")
     fail_unless(int(st.submaps.num_submaps) >= 1,
@@ -2083,7 +2243,9 @@ def phase_flagship(dev, backend, frames, world):
           f"step_ms_median(5..30)={step_ms:.3f} "
           f"step_ms_min={min(times[5:]):.3f} first_frame_ms={times[0]:.1f} "
           f"cells_fused={fused[-1]} shed_frames={sum(s > 0 for s in sheds)} "
-          f"num_submaps={int(st.submaps.num_submaps)} rmse_vs_truth={rmse:.5f}"
+          f"num_submaps={int(st.submaps.num_submaps)} taken_bodies(flush, "
+          f"finalize)={tuple(map(sum, zip(*bodies[1:])))} "
+          f"rmse_vs_truth={rmse:.5f}"
           f" median_abs_err={med:.5f} device_launches={launches} "
           f"wrapper_calls={counts['wrapper']} "
           f"max_memory_allocated={peak}", flush=True)
@@ -2690,6 +2852,7 @@ def main():
     phase_global_map(dev, cloud)
     del cloud
     k4 = phase_k4(dev)
+    k5 = phase_k5(dev)
     fleets, fleet_graph = phase_fleet(dev, graph_ms["stream"])
     phase_fleet_cli(dev)
     phase_distributed(dev, *fleets["stream"][:2])
@@ -2748,7 +2911,10 @@ def main():
             "max_abs_err": err, "ms": ms_, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "four_single_launches_ms": singles})
-    kernels.append(k4)
+    k5.update(launches=launches["compact_append"],
+              launches_per_frame=launches["compact_append"] / n_frames,
+              fleet_launches=fleet_launches["compact_append"])
+    kernels += [k4, k5]
     print(f"flagship step_ms_median graph stream={graph_ms['stream'][0]:.3f} "
           f"pallas={graph_ms['pallas'][0]:.3f}, eager stream="
           f"{graph_ms['stream'][1]:.3f} pallas={graph_ms['pallas'][1]:.3f} "

@@ -3,9 +3,9 @@
 Counterpart of gem_tpu/global_map/submaps.py: a ring of K submap slots, each
 a fixed-(capacity,) struct of arrays plus a count, a live accumulator, and a
 staging ring that defers the shed compaction (SubmapConfig.staging_frames).
-Appends are a cumsum over the new points and, per field, one gather of the
-capacity's rows; points past the capacity are counted as dropped, so no
-append reads a count to the host.
+Appends are kernels/compact.py's `compact_append` (a cumsum and a gather
+per field on the CPU, K5 on a card); points past the capacity are counted
+as dropped, so no append reads a count to the host.
 
 In place: the large rings, `staging`, `slots` and `orthos`, are updated in
 place (one band copy per frame, one slot copy per finalize) instead of being
@@ -29,16 +29,16 @@ counters are selected, and a ring slot is rewritten with its own rows where
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.move import ShedCells
 from gem_tpu_torch.core.state import MapState
+from gem_tpu_torch.kernels.compact import compact_append as _compact_append
 from gem_tpu_torch.utils.control import when as branch_when
 from gem_tpu_torch.utils.observability import TRACER
-from gem_tpu_torch.utils.tree import lead
+from gem_tpu_torch.utils.tree import flat_rows, lead
 
 _FIELDS = ("x", "y", "z", "variance", "intensity", "traver", "color",
            "valid")
@@ -126,40 +126,6 @@ def init_store(cfg, device) -> SubmapStore:
     )
 
 
-def _compact_append(buf: PointBuffer, count, new: PointBuffer):
-    """Append new.valid points into buf at positions [count, ...),
-    compacted: the i-th valid input goes to count + (#valid before i);
-    inputs past the capacity are dropped and counted.  `buf` (..., C),
-    `count` (...), `new` (..., n): one append per leading index.
-
-    Written as a gather: output row j >= count takes the valid input of
-    rank j - count, found by `searchsorted` on the running count of valid
-    inputs, so the work is (capacity) gathers plus one cumsum whatever the
-    input size.  The JAX version scatters every input, the invalid ones to
-    a dump row; both place every point alike.  Every output color passes
-    through f32 as in JAX's stacked scatter (exact for rgb < 2^24)."""
-    C = buf.capacity
-    n = new.valid.shape[-1]
-    if n == 0:
-        return buf, count, torch.zeros_like(count)
-    ranks = torch.cumsum(new.valid, -1, dtype=torch.int32)  # inclusive
-    total = ranks[..., -1]
-    appended = torch.clamp(torch.minimum(total, C - count), min=0)
-    rank = torch.arange(C, dtype=torch.int32, device=ranks.device) \
-        - count[..., None]
-    take = (rank >= 0) & (rank < appended[..., None])
-    src = torch.clamp(torch.searchsorted(ranks, rank + 1), max=n - 1)
-    src = _flat_rows(src, n)      # into every leading index's inputs
-    pick = lambda f: torch.where(take, getattr(new, f).reshape(-1)[src],
-                                 getattr(buf, f))
-    out = PointBuffer(
-        x=pick("x"), y=pick("y"), z=pick("z"), variance=pick("variance"),
-        intensity=pick("intensity"), traver=pick("traver"),
-        color=pick("color").to(torch.float32).to(torch.int32),
-        valid=take | buf.valid)
-    return out, count + appended, total - appended
-
-
 def shed_to_buffer(shed: ShedCells) -> PointBuffer:
     return PointBuffer(x=shed.x, y=shed.y, z=shed.z, variance=shed.variance,
                        intensity=shed.intensity, traver=shed.traver,
@@ -178,21 +144,10 @@ def _cleared(when, old):
         else old.masked_fill(lead(when, old), 0)
 
 
-def _flat_rows(idx, n: int):
-    """`idx` (..., k), rows of each leading index's n rows, as rows of all
-    of them flattened (leading index b's start at n * b); unchanged for
-    one leading index (or none)."""
-    lead = idx.shape[:-1]
-    if math.prod(lead) == 1:
-        return idx
-    return idx + n * torch.arange(math.prod(lead), device=idx.device
-                                  ).reshape(lead + (1,))
-
-
 def _ring_rows(slot, K: int):
     """The row of `slot` (...) in a ring (..., K, ...) flattened to (B *
     K, ...): one `index_select` / `index_copy` then serves every robot."""
-    return _flat_rows(slot.unsqueeze(-1), K).reshape(-1)
+    return flat_rows(slot.unsqueeze(-1), K).reshape(-1)
 
 
 def _flat_ring(ring, nb: int):

@@ -78,6 +78,10 @@ _SIGNATURES = {
     # (out)
     "gem_refuse_join": (_P, _I, _P, _P, _P, _P, _I, _P, _P,
                         ctypes.POINTER(_I)),
+    # K5 (csrc/compact_append.cu): the inputs', the buffer's and the
+    # outputs' eight column pointers (host arrays), count, out count,
+    # dropped, tile counts (scratch), rows, n, C, stream
+    "gem_compact_append": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _P),
 }
 
 

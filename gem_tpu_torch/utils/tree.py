@@ -5,6 +5,7 @@ tuples whose leaves are tensors (None stays None), the counterpart of
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -49,6 +50,17 @@ def lead(pred, x):
     along `x`'s leading dims (a (R,) robot predicate over (R, ...) leaves;
     a () predicate is unchanged in effect)."""
     return pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim()))
+
+
+def flat_rows(idx, n: int):
+    """`idx` (..., k), rows of each leading index's n rows, as rows of all
+    of them flattened (leading index b's start at n * b); unchanged for
+    one leading index (or none)."""
+    rows = idx.shape[:-1]
+    if math.prod(rows) == 1:
+        return idx
+    return idx + n * torch.arange(math.prod(rows), device=idx.device
+                                  ).reshape(rows + (1,))
 
 
 def tree_select(pred, a, b):

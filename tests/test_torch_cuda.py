@@ -1,6 +1,7 @@
 """The CUDA kernel wrappers: K1 `fuse_stream_aggregate`, K2
-`plane_fit_features`, K3 `segment_stats_sorted` and K4 `refuse_join` (the
-re-stitch's pair join, through `loop_closure.refuse_rounds`).
+`plane_fit_features`, K3 `segment_stats_sorted`, K4 `refuse_join` (the
+re-stitch's pair join, through `loop_closure.refuse_rounds`) and K5
+`compact_append` (the submap store's compaction).
 
 This file imports no jax, so on a machine with a card it runs without the
 suite's conftest:
@@ -11,7 +12,8 @@ Tests that need the card take the `cuda` fixture and skip without one.  On
 the card each kernel is held against its plain PyTorch version: selection
 outputs bitwise, K1's two gated sums W and WH and K3's sums (f32 sums that
 the plain version adds with atomics in no fixed order) to 1e-5 relative,
-and K2's five planes bitwise; K4's z, variance and fused count bitwise.
+and K2's five planes bitwise; K4's z, variance and fused count bitwise;
+K5's eight fields, count and dropped bitwise.
 """
 
 import dataclasses
@@ -606,9 +608,10 @@ def test_fuse_backends_on_card_match_cpu(cuda, backend):
 
 def test_fleet_step_on_card_equals_single_pipelines(cuda):
     """Four robots with uneven streams through `fleet_step` (stream path:
-    K1 and K2 once per fleet frame, the robots a grid axis) against four
-    ElevationPipelines on the card: every leaf bitwise."""
+    K1 and K2 once per fleet frame, the robots a grid axis; K5 twice)
+    against four ElevationPipelines on the card: every leaf bitwise."""
     from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.kernels.compact import compact_append
     from gem_tpu_torch.mapping.pipeline import ElevationPipeline
     from gem_tpu_torch.multirobot.fleet import (fleet_effective_config,
                                                 fleet_step, make_fleet_state,
@@ -626,11 +629,14 @@ def test_fleet_step_on_card_equals_single_pipelines(cuda):
     pipes = [ElevationPipeline(fleet_effective_config(cfg), device=cuda)
              for _ in range(n)]
     k1, k2 = fs.fuse_stream_aggregate.launches, ft.plane_fit_features.launches
+    k5 = compact_append.launches
     for t in range(T):
         fleet, _ = fleet_step(fleet, stack_frames(
             [streams[r][t] for r in range(n)]), cfg)
     assert fs.fuse_stream_aggregate.launches - k1 == T
     assert ft.plane_fit_features.launches - k2 == T
+    # K5 twice a fleet step: the shed append and the masked finalize
+    assert compact_append.launches - k5 == 2 * T
     for r in range(n):
         for f in streams[r]:
             pipes[r].process(f)
@@ -1541,3 +1547,319 @@ def test_k4_full_ring_equals_the_plain_join_on_card(cuda, monkeypatch):
         assert torch.equal(getattr(got.slots, k), getattr(want.slots, k)), k
     assert torch.equal(store.slots.z, kept[0])
     assert torch.equal(store.slots.variance, kept[1])
+
+
+# --- K5, the submap store's compaction (kernels/compact.py)
+
+_F32 = ("x", "y", "z", "variance", "intensity", "traver")
+_POINT_FIELDS = _F32 + ("color", "valid")
+
+
+def _compact_case(lead, n, C, fill, flags, seed=0):
+    """(buf, count, new) on the CPU: `lead` leading shape, n inputs and C
+    buffer rows per leading index.  `fill`: every count 0 ("empty"), C // 2
+    ("mid"), C ("full"), or one per row ("uneven": C // 3, 0, C - 5, C).
+    `flags`: no valid input ("none"), all ("all"), 30-90% by row ("some"),
+    95% with more than the room left ("over").  Colors span int32 (>= 2^24
+    and negative, below 2^31 - 64 so that f32 keeps them in range), floats
+    hold NaNs and negative zeros: only a bitwise copy passes."""
+    from gem_tpu_torch.global_map.submaps import PointBuffer
+
+    rng = np.random.default_rng(seed)
+    R = int(np.prod(lead, dtype=np.int64))
+    frac = {"none": [0.0], "all": [1.0], "some": [0.3, 0.9, 0.6, 0.05],
+            "over": [0.95]}[flags]
+    frac = np.resize(np.asarray(frac), R)
+
+    def points(m, frac):
+        f = {k: rng.normal(size=(R, m)).astype(np.float32) for k in _F32}
+        f["x"][:, ::97] = np.nan
+        f["y"][:, 1::89] = -0.0
+        f["color"] = rng.integers(-2 ** 31, 2 ** 31 - 64, (R, m)).astype(
+            np.int32)
+        f["valid"] = rng.random((R, m)) < frac[:, None]
+        return PointBuffer(**{k: torch.from_numpy(v.reshape(lead + (m,)))
+                              for k, v in f.items()})
+
+    counts = {"empty": [0], "mid": [C // 2], "full": [C],
+              "uneven": [C // 3, 0, C - 5, C]}[fill]
+    count = torch.from_numpy(np.resize(np.asarray(counts, np.int32), R)
+                             .reshape(lead))
+    return points(C, np.full(R, 0.5)), count, points(n, frac)
+
+
+# (lead, n, C, fill, flags): below one tile and not 16-aligned, not a
+# multiple of the tile, the fleet's shed append (4, 64000) and finalize
+# (4, 10^6), the single robot's finalize (1, 10^6) and flush (2,048,000)
+_COMPACT_CASES = [
+    ((), 1000, 1500, "mid", "some"),
+    ((), 1000, 600, "empty", "over"),
+    ((4,), 17, 40, "uneven", "all"),
+    ((1,), 3 * 4096 + 77, 32768, "uneven", "some"),
+    ((4,), 3 * 4096 + 77, 5000, "uneven", "over"),
+    ((4,), 64000, 32768, "uneven", "some"),
+    ((4,), 64000, 32768, "full", "all"),
+    ((4,), 64000, 32768, "empty", "none"),
+    ((4,), 64000, 32768, "mid", "over"),
+    ((4,), 10 ** 6, 32768, "uneven", "some"),
+    ((1,), 10 ** 6, 32768, "mid", "over"),
+    ((), 2_048_000, 32768, "empty", "some"),
+]
+_SMALL_COMPACT_CASES = [c for c in _COMPACT_CASES if c[1] <= 64000]
+
+
+def _k5_constants():
+    """The `constexpr int` constants of csrc/compact_append.cu, by name."""
+    import re
+
+    src = os.path.join(os.path.dirname(ft.__file__), os.pardir, "csrc",
+                       "compact_append.cu")
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 open(src).read()):
+        consts[name] = int(eval(expr, {}, dict(consts)))
+    return consts
+
+
+def _tiled_compaction(buf, count, new, tile=None):
+    """K5's two passes in NumPy, block by block, with the source's kBlocks
+    and kCopyTile (and its kTile unless `tile` is given): the tiles' valid
+    counts; then input block b walks tiles b, b + kBlocks, ..., ranks each
+    tile's valid inputs after the tiles before it and writes those of
+    rank < appended, stopping at the first tile whose base is already
+    past it; each copy block writes the buffer's rows that no input
+    takes.  Asserts that every output row is written exactly once.  A
+    model of the kernel's block rule, not the kernel: the card tests hold
+    the kernel itself."""
+    k5 = _k5_constants()
+    tile = tile or k5["kTile"]
+    blocks, copy_tile = k5["kBlocks"], k5["kCopyTile"]
+    lead, C, n = tuple(count.shape), buf.capacity, new.valid.shape[-1]
+    R = int(np.prod(lead, dtype=np.int64))
+    src = {f: getattr(new, f).numpy().reshape(R, n) for f in _POINT_FIELDS}
+    old = {f: getattr(buf, f).numpy().reshape(R, C) for f in _POINT_FIELDS}
+    out = {f: np.zeros_like(v) for f, v in old.items()}
+    written = np.zeros((R, C), np.int64)
+    cnt = count.numpy().reshape(R).astype(np.int64)
+    dropped = np.zeros(R, np.int64)
+    tiles = -(-n // tile)
+    tile_counts = np.stack([src["valid"][:, t * tile:(t + 1) * tile].sum(-1)
+                            for t in range(tiles)], -1)
+
+    def put(r, j, vals, valid):
+        for f in _POINT_FIELDS[:-1]:
+            v = vals[f]
+            out[f][r, j] = v.astype(np.float32).astype(np.int32) \
+                if f == "color" else v
+        out["valid"][r, j] = valid
+        written[r, j] += 1
+
+    G = min(tiles, blocks)
+    for r in range(R):
+        appended = max(min(int(tile_counts[r].sum()), C - cnt[r]), 0)
+        for b in range(G + max(-(-C // copy_tile), 1)):
+            if b >= G:
+                j = np.arange((b - G) * copy_tile,
+                              min((b - G + 1) * copy_tile, C))
+                j = j[(j < cnt[r]) | (j >= cnt[r] + appended)]
+                put(r, j, {f: v[r, j] for f, v in old.items()},
+                    old["valid"][r, j])
+                continue
+            for t in range(b, tiles, G):
+                before = int(tile_counts[r, :t].sum())
+                if before >= appended:
+                    break
+                i = np.nonzero(src["valid"][r, t * tile:(t + 1) * tile])[0] \
+                    + t * tile
+                rank = before + np.arange(i.size)
+                ok = (rank < appended) & (cnt[r] + rank >= 0)
+                put(r, cnt[r] + rank[ok],
+                    {f: v[r, i[ok]] for f, v in src.items()}, True)
+        assert (written[r] == 1).all()
+        dropped[r] = tile_counts[r].sum() - appended
+        cnt[r] += appended
+    return ({f: v.reshape(lead + (C,)) for f, v in out.items()},
+            cnt.reshape(lead), dropped.reshape(lead))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_compaction(got, want):
+    for f in _POINT_FIELDS:
+        assert torch.equal(_bits(getattr(got[0], f)),
+                           _bits(getattr(want[0], f))), f
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_k5_model_and_wrapper_take_the_kernels_constants():
+    """The wrapper's tile (its scratch of tile counts) is the source's
+    kTile, and the block rule below reads kBlocks and kCopyTile from the
+    source: the model follows the kernel's tiling."""
+    from gem_tpu_torch.kernels import compact
+
+    k5 = _k5_constants()
+    assert compact._TILE == k5["kTile"] == k5["kThreads"] * k5["kPerThread"]
+    assert k5["kBlocks"] >= 1 and k5["kCopyTile"] >= 1
+
+
+@pytest.mark.parametrize("case", _SMALL_COMPACT_CASES)
+def test_tiled_compaction_rule_equals_the_plain_version(case):
+    """K5's block rule (tile counts, input blocks walking every kBlocks-th
+    tile from their base, ranked writes, copy blocks for the rows no input
+    takes) is the plain compaction, bitwise, on the CPU; 64-input tiles
+    give small inputs many tiles a block, so the walk is exercised."""
+    from gem_tpu_torch.kernels.compact import compact_append_plain
+
+    buf, count, new = _compact_case(*case)
+    fields, cnt, dropped = _tiled_compaction(buf, count, new, tile=64)
+    want, wcnt, wdropped = compact_append_plain(buf, count, new)
+    for f in _POINT_FIELDS:
+        got = torch.from_numpy(fields[f])
+        assert torch.equal(_bits(got), _bits(getattr(want, f))), f
+    np.testing.assert_array_equal(cnt, wcnt.numpy())
+    np.testing.assert_array_equal(dropped, wdropped.numpy())
+
+
+@pytest.mark.parametrize("case", _SMALL_COMPACT_CASES[:6])
+def test_compact_append_routes_cpu_tensors_to_the_plain_version(case):
+    """CPU tensors take the plain compaction, uncounted, through the
+    wrapper and through the store's `_compact_append`."""
+    from gem_tpu_torch.global_map import submaps
+    from gem_tpu_torch.kernels.compact import (compact_append,
+                                               compact_append_plain)
+
+    buf, count, new = _compact_case(*case)
+    before = compact_append.launches
+    want = compact_append_plain(buf, count, new)
+    _same_compaction(compact_append(buf, count, new), want)
+    _same_compaction(submaps._compact_append(buf, count, new), want)
+    assert compact_append.launches == before
+
+
+def _bad_compaction(kind):
+    buf, count, new = _compact_case((2,), 100, 50, "mid", "some")
+    if kind == "f64_x":
+        new = new.replace(x=new.x.double())
+    elif kind == "i64_color":
+        buf = buf.replace(color=buf.color.long())
+    elif kind == "u8_valid":
+        new = new.replace(valid=new.valid.to(torch.uint8))
+    elif kind == "i64_count":
+        count = count.long()
+    elif kind == "count_shape":
+        count = count[:1]
+    elif kind == "field_length":
+        new = new.replace(traver=new.traver[..., :-1])
+    elif kind == "lead_shape":
+        new = type(new)(**{f: getattr(new, f)[:1] for f in _POINT_FIELDS})
+    elif kind == "meta":
+        new = type(new)(**{f: torch.empty_like(getattr(new, f),
+                                               device="meta")
+                           for f in _POINT_FIELDS})
+    return buf, count, new
+
+
+@pytest.mark.parametrize("kind", ["f64_x", "i64_color", "u8_valid",
+                                  "i64_count", "count_shape",
+                                  "field_length", "lead_shape", "meta"])
+def test_compact_append_refuses_other_dtypes_shapes_and_devices(kind):
+    from gem_tpu_torch.kernels.compact import compact_append
+
+    before = compact_append.launches
+    with pytest.raises(ValueError, match="compact_append"):
+        compact_append(*_bad_compaction(kind))
+    assert compact_append.launches == before
+
+
+@pytest.mark.parametrize("case", _COMPACT_CASES)
+def test_k5_equals_the_plain_compaction_on_card(cuda, case):
+    """K5 against the plain version on the card: every field bitwise, the
+    count and dropped; one launch counted per call; two calls bitwise; the
+    inputs unchanged."""
+    from gem_tpu_torch.kernels.compact import (compact_append,
+                                               compact_append_plain)
+
+    buf, count, new = (_on(x, cuda) if not torch.is_tensor(x)
+                       else x.to(cuda) for x in _compact_case(*case))
+    kept = [getattr(p, f).clone() for p in (buf, new) for f in _POINT_FIELDS]
+    before = compact_append.launches
+    got = compact_append(buf, count, new)
+    again = compact_append(buf, count, new)
+    torch.cuda.synchronize()
+    assert compact_append.launches == before + 2
+    _same_compaction(got, compact_append_plain(buf, count, new))
+    _same_compaction(got, again)
+    now = [getattr(p, f) for p in (buf, new) for f in _POINT_FIELDS]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(kept, now))
+
+
+def test_k5_in_a_cuda_graph_equals_eager_on_card(cuda):
+    """K5 captured once in a CUDA graph (one launch counted at the
+    capture, none on replay) and replayed on new inputs copied into the
+    captured ones equals the eager call on those inputs, bitwise."""
+    from gem_tpu_torch.kernels.compact import compact_append
+
+    case = ((4,), 64000, 32768, "uneven", "some")
+    move = lambda c: [_on(x, cuda) if not torch.is_tensor(x) else x.to(cuda)
+                      for x in c]
+    static = move(_compact_case(*case, seed=1))
+    compact_append(*static)
+    torch.cuda.synchronize()
+    before = compact_append.launches
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = compact_append(*static)
+    assert compact_append.launches == before + 1
+    for seed in (2, 3, 1):
+        fresh = move(_compact_case(*case, seed=seed))
+        for s, f in ((static[0], fresh[0]), (static[2], fresh[2])):
+            for name in _POINT_FIELDS:
+                getattr(s, name).copy_(getattr(f, name))
+        static[1].copy_(fresh[1])
+        g.replay()
+        torch.cuda.synchronize()
+        _same_compaction(out, compact_append(*fresh))
+    assert compact_append.launches == before + 4
+
+
+def test_k5_runs_in_the_taken_bodies_without_wrapper_calls_on_card(cuda):
+    """A single robot through ElevationPipeline with staging on: the eager
+    first frame runs both masked bodies (the flush's K5 call, the
+    finalize's two: its staged flush and the grid snapshot) and the
+    capture calls the wrapper as often again; a replay calls no wrapper,
+    yet a taken flush body empties the staging ring into the accumulator
+    and a taken finalize body closes a submap.  K5's launches on the
+    device per taken body are counted by chip_smoke.py phase 8 (a profile
+    begun just before the work missed launches here)."""
+    from gem_tpu_torch.io.replay import synthetic_frames
+    from gem_tpu_torch.kernels.compact import compact_append
+    from gem_tpu_torch.mapping.pipeline import ElevationPipeline
+
+    cfg = _graph_cfg()
+    S = cfg.submap.staging_frames
+    frames = [f for f, _, _ in synthetic_frames(
+        cfg, 12, n_points=3000, speed=0.35, seed=3, max_range=3.0,
+        device=cuda)]
+    pipe = ElevationPipeline(cfg, device=cuda)
+    flush_only = keyframes = 0
+    for i, f in enumerate(frames):
+        sub = pipe.state.submaps
+        used, n_sub = int(sub.staging_used), int(sub.num_submaps)
+        staged = int(sub.staging.valid.sum())
+        held = int(sub.accum_count) + int(sub.dropped)
+        calls = compact_append.launches
+        out = pipe.process(f)
+        assert compact_append.launches - calls == (6 if i == 0 else 0), i
+        sub = pipe.state.submaps
+        keyframe = bool(out.keyframe_due.any())
+        assert int(sub.num_submaps) == n_sub + keyframe, i
+        keyframes += keyframe and i > 0
+        if i > 0 and used + 1 >= S and not keyframe:
+            # the flush body: every staged point appended or dropped
+            assert int(sub.staging_used) == 0, i
+            assert int(sub.staging.valid.sum()) == 0, i
+            assert int(sub.accum_count) + int(sub.dropped) >= held + staged
+            flush_only += 1
+    assert flush_only and keyframes
