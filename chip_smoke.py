@@ -152,15 +152,9 @@ import time
 import numpy as np
 import torch
 
-
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s and
-# fp32 operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# K2's fp32 operations per cell: a fitted cell's 25 x 13 moment terms and
-# its ~250-operation eigen epilogue; another cell's 25 validity tests
-K2_OPS_FITTED = 575
-K2_OPS_COUNT = 25
+# the H100's published peaks and the kernels' least bytes and operations
+from benchmark.yardstick import (bound, k1_bound, k1_bytes, k1_counts,
+                                 k2_bound)
 
 
 def fail_unless(cond, msg):
@@ -225,7 +219,7 @@ def rows_compare(a, b):
 
 def frame_batch(state, frame, cfg):
     """The step's own stages up to the fuse: move, then point processing.
-    Returns (moved map, point batch, pointproc's `lowest` plane)."""
+    Returns (moved map, point batch)."""
     from gem_tpu_torch.core.move import move
     from gem_tpu_torch.kernels.pointproc import process_points
     from gem_tpu_torch.sensors.models import jacobian_ingredients
@@ -233,11 +227,11 @@ def frame_batch(state, frame, cfg):
     ms, _ = move(state.map, cfg.map, frame.track_position)
     jac = jacobian_ingredients(frame.r_map_base, frame.r_base_sensor,
                                frame.t_base_sensor)
-    batch, lowest = process_points(
+    batch = process_points(
         ms, cfg, frame.points, frame.intensity, frame.valid, frame.transform,
         frame.t_map_base[2], jac[0], frame.pose_cov[3:, 3:], *jac[1:],
         colors=frame.colors)
-    return ms, batch, lowest
+    return ms, batch
 
 
 def bitwise_equal(a, b):
@@ -305,7 +299,7 @@ def k1_frame(cfg_fn, dev, n, colored):
         pts[:, 2] += lift
         frame = dataclasses.replace(
             frame, points=pts, colors=torch.from_numpy(col).to(dev))
-    ms, batch, _ = frame_batch(state, frame, cfg)
+    ms, batch = frame_batch(state, frame, cfg)
     L = cfg.map.length
     args = (*fs.sort_points(batch, L * L), ms.elevation.reshape(-1),
             ms.variance.reshape(-1), cfg.map)
@@ -352,7 +346,7 @@ def phase_k1(cfg_fn, dev, old=None):
         t_k = t_g["current"]
         t_e = cuda_ms(lambda: fs.fuse_stream_aggregate(*args), 20)
         t_p = cuda_ms(lambda: fs.fuse_stream_aggregate_plain(*args), 20)
-        b_ms = k1_bound(args)[0]
+        b_ms = k1_bound(*k1_counts(args[0]))[0]
         longest, tile_max = k1_shape(args)
         earlier = (f" earlier=ok earlier_kernel_ms={t_g['earlier']:.4f} "
                    f"earlier_share_of_bound={b_ms / t_g['earlier']:.3f}"
@@ -365,7 +359,8 @@ def phase_k1(cfg_fn, dev, old=None):
               f" kernel_ms={t_k:.4f} eager_ms={t_e:.4f} plain_ms={t_p:.4f} "
               f"bound_ms={b_ms:.4f} share_of_bound={b_ms / t_k:.3f}"
               f"{earlier}", flush=True)
-        results.append((name, plane_err, t_k, t_p, k1_bound(args), t_e))
+        results.append((name, plane_err, t_k, t_p,
+                        k1_bound(*k1_counts(args[0])), t_e))
         if name == "131k":
             prior = fused_k
         del args, k, p, batch, ms, fused_k, fused_p
@@ -461,29 +456,6 @@ def k1_adversarial(cfg_fn, dev, old=None):
             names.append(f"{what}:{int(batch.valid.sum())}")
     print(f"phase 3 K1 adversarial L={L}: ok rows=equal run_to_run=bitwise "
           f"layouts/points={names}", flush=True)
-
-
-def bound(nbytes, ops=0.0):
-    """(bound ms, what bounds it): the least time the card could take to
-    move `nbytes` (each input read once, each output written once) and do
-    `ops` fp32 operations, at the H100's published 3.35 TB/s and 67 TFLOP/s
-    fp32 outside the tensor cores."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k1_bound(args):
-    """K1's least bytes: its 16 output rows, the run offsets, the four
-    columns of the sorted points that lie in a cell (the pad lanes after
-    them are never read), and the priors (elevation, variance) of the
-    cells that hold points; with a robot axis, every robot's."""
-    offsets, h, v, inten, colf, elev0, _, _ = args
-    occupied = int((offsets[..., 1:] > offsets[..., :-1]).sum())
-    in_cells = int((offsets[..., -1] - offsets[..., 0]).sum())
-    nbytes = (16 * elev0.numel() * 4 + offsets.numel() * 8
-              + 4 * in_cells * 4 + 2 * occupied * 4)
-    return bound(nbytes)
 
 
 def terrain_map(cfg, dev):
@@ -675,8 +647,7 @@ def phase_k2(cfg, states, old=None):
                       & (p.neighbor_count >= mcfg.feature_min_neighbors))
                      .sum())
         fail_unless(fitted > 0, f"K2 {name}: no fitted cell")
-        b_ms, b_by = bound(24 * cells, K2_OPS_FITTED * fitted
-                           + K2_OPS_COUNT * (cells - fitted))
+        b_ms, b_by = k2_bound(cells, fitted)
         fns = {"current": lambda: ft.plane_fit_features(m, mcfg)}
         earlier = ""
         if old is not None and old.has("features.cu"):
@@ -759,7 +730,7 @@ def phase_parity(dev, backend):
 
 def fuse_pallas_calls(ms, cfg, batch):
     """The argument tuples of the five `segment_stats_sorted` calls that
-    one `fuse_pallas` makes on this frame, recorded around the real call."""
+    one pallas fuse makes on this frame, recorded around the real call."""
     from gem_tpu_torch.kernels import fuse as fz
 
     calls = []
@@ -771,7 +742,7 @@ def fuse_pallas_calls(ms, cfg, batch):
 
     fz.segment_stats_sorted = record
     try:
-        fz.fuse_pallas(ms, cfg, batch)
+        fz.fuse(ms, cfg, batch, backend="pallas")
     finally:
         fz.segment_stats_sorted = real
     fail_unless(len(calls) == 5, f"fuse_pallas made {len(calls)} calls")
@@ -985,7 +956,7 @@ def phase_k3(cfg_fn, dev, old=None):
     to the plain version on its own arguments and its kernel and wrapper
     are timed in turns with the current ones.
     Returns (results, adversarial max error, the 131k frame's (cfg, moved
-    map, batch, lowest))."""
+    map, batch))."""
     from gem_tpu_torch.io.replay import synthetic_frames
     from gem_tpu_torch.kernels import segment_stats as sst
     from gem_tpu_torch.mapping.pipeline import init_pipeline_state, step
@@ -998,7 +969,7 @@ def phase_k3(cfg_fn, dev, old=None):
         state = init_pipeline_state(cfg, dev)
         for f in frames[:2]:
             state, _ = step(state, f, cfg, fuse_backend="pallas")
-        ms, batch, lowest = frame_batch(state, frames[2], cfg)
+        ms, batch = frame_batch(state, frames[2], cfg)
         calls = fuse_pallas_calls(ms, cfg, batch)
         err = max(k3_compare(a) for a in calls)
         t = {"kernel": 0.0, "wrapper": 0.0, "plain": 0.0, "library": 0.0,
@@ -1039,7 +1010,7 @@ def phase_k3(cfg_fn, dev, old=None):
               flush=True)
         results[name] = (err, {k: v / 5 for k, v in t.items()})
         if name == "131k":
-            flagship = (cfg, ms, batch, lowest)
+            flagship = (cfg, ms, batch)
     adv_err = k3_adversarial(dev)
     return results, adv_err, flagship
 
@@ -1063,7 +1034,7 @@ def robot_axis_frames(cfg_fn, dev, R=4, n=1 << 17):
         state = init_pipeline_state(cfg, dev)
         for f in frames[:2]:
             state, _ = step(state, f, cfg)
-        ms, batch, _ = frame_batch(state, frames[2], cfg)
+        ms, batch = frame_batch(state, frames[2], cfg)
         maps.append(ms)
         batches.append(batch)
     stack = lambda xs: tree_map(lambda *t: torch.stack(t), xs[0], *xs[1:])
@@ -1120,7 +1091,7 @@ def phase_robot_axis(cfg_fn, dev):
                   "singles": lambda: [fs.fuse_stream_aggregate(*a)
                                       for a in singles]}, graph_ms, 10)
     t_p = cuda_ms(lambda: fs.fuse_stream_aggregate_plain(*args), 5)
-    b = k1_bound(args)
+    b = bound(sum(k1_bytes(*k1_counts(o)) for o in args[0]))
     print(f"phase 3 K1 R={R} (robot grid axis, one launch) points={pts}: "
           f"ok selection_rows=bitwise robots_vs_single_launches=bitwise "
           f"run_to_run=bitwise W_max_rel_err={max(e[0] for e in errs):.3g} "
@@ -1151,8 +1122,7 @@ def phase_robot_axis(cfg_fn, dev):
     cells = R * L * L
     fitted = int(((fused_k.elevation != mcfg.invalid_elevation)
                   & (p.neighbor_count >= mcfg.feature_min_neighbors)).sum())
-    b = bound(24 * cells, K2_OPS_FITTED * fitted
-              + K2_OPS_COUNT * (cells - fitted))
+    b = k2_bound(cells, fitted)
     t = in_turns({"robots": lambda: ft.plane_fit_features(fused_k, mcfg),
                   "singles": lambda: [ft.plane_fit_features(m, mcfg)
                                       for m in one]}, graph_ms, 20)
@@ -1212,21 +1182,18 @@ def phase_robot_axis(cfg_fn, dev):
     return out
 
 
-def phase_backends(cfg, ms, batch, lowest):
+def phase_backends(cfg, ms, batch):
     """The four fuse backends on one flagship frame.  pallas vs segment:
     the JAX suite's bounds (tests/test_fuse.py, rtol 3e-5 / atol 1e-5);
     stream vs segment: 5e-5 (phase 3's bound: per-cell f32 sums in another
     order); sort vs segment: 0.05 m and 2% of the variance, since its sums
     are a global f32 cumsum minus the carry at each run start and the
     prefix of 1/v over 131072 points reaches ~1e8 (an ULP of 8); colors
-    equal everywhere; pointproc's `lowest` bitwise the stream fuse's."""
-    from gem_tpu_torch.kernels.fuse import fuse
-    from gem_tpu_torch.kernels.fuse_stream import fuse_stream
+    equal everywhere; the `lowest` plane of the others (pointproc's
+    `lowest_bound`) bitwise the stream fuse's."""
+    from gem_tpu_torch.kernels.fuse import FUSE_BACKENDS, fuse
 
-    base = ms.replace(lowest=lowest)
-    out = {b: fuse(base, cfg, batch, backend=b)
-           for b in ("segment", "sort", "pallas")}
-    out["stream"] = fuse_stream(ms, cfg, batch)
+    out = {b: fuse(ms, cfg, batch, backend=b) for b in FUSE_BACKENDS}
     torch.cuda.synchronize()
     seg = out["segment"]
     errs = {}
@@ -1252,8 +1219,9 @@ def phase_backends(cfg, ms, batch, lowest):
             fail_unless(e["elevation"] <= 0.05 and rel_v <= 0.02
                         and e["intensity"] == 0.0,
                         f"backends: sort vs segment {errs[b]}")
-    fail_unless(bool(torch.equal(lowest, out["stream"].lowest)),
-                "backends: pointproc lowest differs from the stream fuse's")
+    for b in ("segment", "sort", "pallas"):
+        fail_unless(bool(torch.equal(out[b].lowest, out["stream"].lowest)),
+                    f"backends: {b}'s lowest differs from the stream fuse's")
     inv = cfg.map.invalid_elevation
     fused = int((seg.elevation != inv).sum())
     fail_unless(fused > 0.05 * cfg.map.length ** 2,
@@ -2551,10 +2519,8 @@ def phase_cond_route(dev):
     sides = (lambda v: (v * 2, v), lambda v: (v * 3, torch.cumsum(v, 0)))
 
     def bump(s, when=None):
-        if when is None:
-            s["n"].add_(1)
-            return s
-        return {"n": torch.where(when, s["n"] + 1, s["n"])}
+        control.assign(when, s["n"], s["n"] + 1)
+        return s
 
     control.cond(pred, *sides, a)          # the eager warm-up
     control.when(pred, bump, store)

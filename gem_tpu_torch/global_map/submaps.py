@@ -15,15 +15,16 @@ consumed; use the returned one.
 
 No host read: the staging row is a device index, and the staging flush is
 `utils.control.when(used >= S, flush_staging, store)`, the counterpart of
-JAX's `lax.cond`.  Without `when`, `flush_staging` and `finalize_submap`
-are the taken branch: they write every leaf they change into the store's
-own tensors (`copy_`, `index_copy_`, `add_`, `zero_`) and return the same
-store, so the branch can be the body of a CUDA-graph IF node, after which
-nothing reads a tensor made inside it.  With a () or (R,) bool `when` they
-are the masked form that `control.when` calls on its select route (a
-fleet, or the eager call on a card): the work runs on every frame, the
-counters are selected, and a ring slot is rewritten with its own rows where
-`when` is False.
+JAX's `lax.cond`.  `flush_staging` and `finalize_submap` are `when`
+bodies (utils/control.py): they write every leaf they change into the
+store's own tensors and return the same store, where their () or (R,)
+bool `when` is True, or everywhere for `when` None (the branch is
+taken).  Every ring write goes through one slot write, which rewrites a
+slot with its own rows where `when` is False; every counter and the
+accumulator through `control.assign` / `control.clear`.  So the branch
+can be the body of a CUDA-graph IF node, after which nothing reads a
+tensor made inside it, and the select route (a fleet, or the eager call
+on a card) runs the same body under a mask.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ from gem_tpu_torch.core import index_math as im
 from gem_tpu_torch.core.move import ShedCells
 from gem_tpu_torch.core.state import MapState
 from gem_tpu_torch.kernels.compact import compact_append as _compact_append
-from gem_tpu_torch.utils.control import when as branch_when
+from gem_tpu_torch.utils.control import (assign, clear, select,
+                                         when as branch_when)
 from gem_tpu_torch.utils.observability import TRACER
-from gem_tpu_torch.utils.tree import flat_rows, lead
+from gem_tpu_torch.utils.tree import flat_rows
 
 _FIELDS = ("x", "y", "z", "variance", "intensity", "traver", "color",
            "valid")
@@ -132,18 +134,6 @@ def shed_to_buffer(shed: ShedCells) -> PointBuffer:
                        color=shed.color, valid=shed.valid)
 
 
-def _select(when, new, old):
-    """`new` where the branch is taken; `when` None: always.  `when` is ()
-    or (R,), broadcast over the leaf's trailing dims."""
-    return new if when is None else torch.where(lead(when, new), new, old)
-
-
-def _cleared(when, old):
-    """Zeros where the branch is taken; `when` None: always."""
-    return torch.zeros_like(old) if when is None \
-        else old.masked_fill(lead(when, old), 0)
-
-
 def _ring_rows(slot, K: int):
     """The row of `slot` (...) in a ring (..., K, ...) flattened to (B *
     K, ...): one `index_select` / `index_copy` then serves every robot."""
@@ -156,11 +146,10 @@ def _flat_ring(ring, nb: int):
 
 def flush_staging(store: SubmapStore, when=None) -> SubmapStore:
     """Compact every staged shed band into the accumulator, in frame order
-    (unstaged rows carry valid=False).  Without `when`, in place: the
-    returned store is `store`.  With a () or (R,) bool `when`, only where
-    it is True: the compaction runs either way and the store keeps its old
-    leaves where `when` is False (the select for JAX's `lax.cond`).
-    Stamps the tracer's `flush` (a finalize's own flush does not)."""
+    (unstaged rows carry valid=False), in place, where the () or (R,) bool
+    `when` is True (`when` None: everywhere): the returned store is
+    `store`.  Stamps the tracer's `flush` (a finalize's own flush does
+    not)."""
     if store.staging.x.shape[-2] > 0:
         TRACER.mark("flush", store.staging.x.device)
     return _flush(store, when)
@@ -173,22 +162,13 @@ def _flush(store: SubmapStore, when=None) -> SubmapStore:
     flat = PointBuffer(**{f: getattr(st, f).flatten(-2) for f in _FIELDS})
     accum, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                           flat)
-    if when is None:
-        for f in _FIELDS:
-            getattr(store.accum, f).copy_(getattr(accum, f))
-        store.accum_count.copy_(cnt)
-        store.dropped.add_(dropped)
-        st.valid.zero_()
-        store.staging_used.zero_()
-        return store
-    st.valid.logical_and_(~lead(when, st.valid))
-    return store.replace(
-        accum=PointBuffer(**{f: _select(when, getattr(accum, f),
-                                        getattr(store.accum, f))
-                             for f in _FIELDS}),
-        accum_count=_select(when, cnt, store.accum_count),
-        dropped=_select(when, store.dropped + dropped, store.dropped),
-        staging_used=_cleared(when, store.staging_used))
+    for f in _FIELDS:
+        assign(when, getattr(store.accum, f), getattr(accum, f))
+    assign(when, store.accum_count, cnt)
+    assign(when, store.dropped, store.dropped + dropped)
+    clear(when, st.valid)
+    clear(when, store.staging_used)
+    return store
 
 
 def append_shed(store: SubmapStore, shed: ShedCells) -> SubmapStore:
@@ -243,65 +223,39 @@ def finalize_submap(store: SubmapStore, grid_points: PointBuffer,
     """Close the current submap: accumulator + grid snapshot -> next ring
     slot; optional (L, L, 3) orthomosaic `ortho` (written into the
     `orthos` ring) and raw keyframe scan `kf_points` (M, 3) with
-    `kf_count` valid rows.  Without `when`, in place: the returned store is
-    `store`.  With a () or (R,) bool `when`, only where it is True: the
-    slot is rewritten with its old rows and every counter stays where
-    `when` is False.  With a robot axis each robot closes into its own
-    next slot."""
+    `kf_count` valid rows.  In place, where the () or (R,) bool `when` is
+    True (`when` None: everywhere): the returned store is `store`.  With a
+    robot axis each robot closes into its own next slot."""
     K = store.counts.shape[-1]
     slot = torch.remainder(store.num_submaps, K).long()
     nb = slot.dim()
     store = _flush(store, when)   # staged bands precede the snapshot
     merged, cnt, dropped = _compact_append(store.accum, store.accum_count,
                                            grid_points)
-
     rows = _ring_rows(slot, K)
 
     def write_slot(ring, value):
         flat = _flat_ring(ring, nb)
         if when is not None:
             old = flat.index_select(0, rows)
-            value = _select(when, value.reshape(old.shape), old)
+            value = select(when, value.reshape(old.shape), old)
         flat.index_copy_(0, rows, value.reshape((-1,) + flat.shape[1:]))
 
     for f in _FIELDS:
         write_slot(getattr(store.slots, f), getattr(merged, f))
     if ortho is not None and store.orthos.shape[nb + 1] > 0:
         write_slot(store.orthos, ortho.to(torch.uint8))
+    if kf_points is not None and store.kf_points.shape[nb + 1] > 0:
+        write_slot(store.kf_points, kf_points.to(torch.float32))
+        write_slot(store.kf_counts, kf_count.to(torch.int32))
     pose = keyframe_pose.to(torch.float32)
-    with_scan = kf_points is not None and store.kf_points.shape[nb + 1] > 0
-
-    if when is None:
-        if with_scan:
-            write_slot(store.kf_points, kf_points.to(torch.float32))
-            write_slot(store.kf_counts, kf_count.to(torch.int32))
-        write_slot(store.counts, cnt)
-        write_slot(store.centers, pose[..., :2])
-        write_slot(store.poses, pose)
-        write_slot(store.kf_ids, store.num_submaps)
-        store.num_submaps.add_(1)
-        for f in _FIELDS:
-            getattr(store.accum, f).zero_()
-        store.accum_count.zero_()
-        store.dropped.add_(dropped)
-        return store
-
-    def put(arr, v):
-        flat = _flat_ring(arr, nb)
-        new = flat.index_copy(0, rows, v.reshape((-1,) + flat.shape[1:]))
-        return _select(when, new.reshape(arr.shape), arr)
-    kf_pts, kf_counts = store.kf_points, store.kf_counts
-    if with_scan:
-        kf_pts = put(kf_pts, kf_points.to(torch.float32))
-        kf_counts = put(kf_counts, kf_count.to(torch.int32))
-    return store.replace(
-        counts=put(store.counts, cnt),
-        centers=put(store.centers, pose[..., :2]),
-        poses=put(store.poses, pose),
-        num_submaps=_select(when, store.num_submaps + 1, store.num_submaps),
-        kf_ids=put(store.kf_ids, store.num_submaps),
-        accum=PointBuffer(**{f: _cleared(when, getattr(store.accum, f))
-                             for f in _FIELDS}),
-        accum_count=_cleared(when, store.accum_count),
-        dropped=_select(when, store.dropped + dropped, store.dropped),
-        kf_points=kf_pts, kf_counts=kf_counts)
+    write_slot(store.counts, cnt)
+    write_slot(store.centers, pose[..., :2])
+    write_slot(store.poses, pose)
+    write_slot(store.kf_ids, store.num_submaps)
+    assign(when, store.num_submaps, store.num_submaps + 1)
+    for f in _FIELDS:
+        clear(when, getattr(store.accum, f))
+    clear(when, store.accum_count)
+    assign(when, store.dropped, store.dropped + dropped)
+    return store

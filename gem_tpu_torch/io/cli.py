@@ -642,6 +642,8 @@ def cmd_info(args):
 
 def _parser() -> argparse.ArgumentParser:
     """The CLI's parser: every subcommand sets `fn`, its command."""
+    from gem_tpu_torch.kernels.fuse import FUSE_BACKENDS
+
     ap = argparse.ArgumentParser(prog="gem_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -669,7 +671,7 @@ def _parser() -> argparse.ArgumentParser:
     rp.add_argument("--speed", type=float, default=0.5)
     rp.add_argument("--seed", type=int, default=0)
     rp.add_argument("--fuse-backend", default="auto",
-                    choices=["auto", "stream", "segment", "sort", "pallas"],
+                    choices=("auto",) + FUSE_BACKENDS,
                     help="auto = stream")
     rp.add_argument("--scan", type=int, default=0, metavar="T",
                     help="replay T frames per scan_steps call")
@@ -722,7 +724,7 @@ def _parser() -> argparse.ArgumentParser:
     fp.add_argument("--frames", type=int, default=50)
     fp.add_argument("--speed", type=float, default=0.5)
     fp.add_argument("--fuse-backend", default="auto",
-                    choices=["auto", "stream", "segment", "sort", "pallas"],
+                    choices=("auto",) + FUSE_BACKENDS,
                     help="auto = stream")
     fp.add_argument("--mesh", action="store_true",
                     help="one process per visible card of this host, robots "

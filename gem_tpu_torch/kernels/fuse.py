@@ -1,17 +1,22 @@
-"""Per-cell Kalman / min-variance fusion as an O(N) segment reduction.
+"""Per-cell Kalman / min-variance fusion, and the one entry for every fuse
+backend: `fuse(state, cfg, batch, backend)` with `backend` one of
+`FUSE_BACKENDS`, which also updates the per-cell `lowest` bound (when
+`cfg.enable_lowest`).
 
 Counterpart of gem_tpu/kernels/fuse.py, line for line: the anchor (the cell
 prior, or the highest candidate of an empty cell), gating against it, the
 product-of-Gaussians inlier combine, the Kalman posterior, the
 outlier-above overwrite and the min-variance color payload.  Backends:
 
+  * "stream" (the step's default): kernels/fuse_stream.py, whose aggregate
+    pass is kernel K1 and which reads `lowest` off its sorted runs;
   * "segment" / "sort": the reductions of kernels/scatter.py;
   * "pallas": `fuse_pallas`, whose five reductions per frame go through
     `segment_stats_sorted` (kernel K3 on CUDA tensors) over one shared
     sort, with the same column stacks as the JAX version.
 
-The streaming backend, which also owns the lowest reduction, is
-kernels/fuse_stream.py; the pipeline dispatches to it directly.
+The last three take `lowest` from kernels/pointproc.py `lowest_bound`,
+over the geographic cells recovered from the batch's storage cells.
 
 Robot axis (JAX's `vmap` of `fuse`): a state with planes (R, L, L) and a
 batch of (R, P) points.  The segment and sort backends fold robot r's ids
@@ -26,9 +31,11 @@ import math
 
 import torch
 
+from gem_tpu_torch.core.index_math import storage_to_geo
 from gem_tpu_torch.core.state import MapState
 from gem_tpu_torch.kernels import scatter
-from gem_tpu_torch.kernels.pointproc import PointBatch
+from gem_tpu_torch.kernels.fuse_stream import fuse_stream
+from gem_tpu_torch.kernels.pointproc import PointBatch, lowest_bound
 from gem_tpu_torch.kernels.segment_stats import (pad_sort,
                                                  segment_stats_sorted)
 
@@ -42,13 +49,33 @@ def _has_color(color, intensity):
              * (color & 0xFF)) != 0) & (intensity != 0)
 
 
+FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in FUSE_BACKENDS:
+        raise ValueError(f"fuse_backend {backend!r} is not one of "
+                         f"{FUSE_BACKENDS}")
+
+
 def fuse(state: MapState, cfg, batch: PointBatch,
          backend: str = "segment") -> MapState:
-    """backend: "segment", "sort" or "pallas" (see the module docstring)."""
+    """Fuse a processed point batch into the map with `backend` (see the
+    module docstring), `lowest` included."""
+    check_backend(backend)
+    if backend == "stream":
+        return fuse_stream(state, cfg, batch, with_lowest=cfg.enable_lowest,
+                           with_color=cfg.enable_color)
+    if cfg.enable_lowest:
+        # exact integer arithmetic: the geographic cell each point binned by
+        L = cfg.map.length
+        gx, gy = storage_to_geo(batch.cell // L, batch.cell % L,
+                                state.start[..., None, :], L)
+        state = state.replace(lowest=lowest_bound(
+            state.lowest, gx * L + gy, batch.height, batch.variance,
+            batch.valid, L))
     if backend == "pallas":
         return fuse_pallas(state, cfg, batch)
-    if backend not in ("segment", "sort"):
-        raise ValueError(f"fuse: unknown backend {backend!r}")
     mcfg = cfg.map
     L = mcfg.length
     ncell = L * L

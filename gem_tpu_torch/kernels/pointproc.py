@@ -4,10 +4,11 @@ Counterpart of gem_tpu/kernels/pointproc.py (G_pointsprocess plus the
 per-frame colorization loop), over a fixed-size padded point batch with a
 validity mask.
 
-It also computes the per-cell lowest-scan bound that the segment, sort and
-pallas fuse backends need (the stream fuse reads the same winner off its
-sorted run ends, kernels/fuse_stream.py).  As in the reference, `lowest`
-is indexed by GEOGRAPHIC cell, unlike every other plane.
+`lowest_bound` is the per-cell lowest-scan bound that the segment, sort
+and pallas fuse backends apply (kernels/fuse.py; the stream fuse reads the
+same winner off its sorted run ends, kernels/fuse_stream.py).  As in the
+reference, `lowest` is indexed by GEOGRAPHIC cell, unlike every other
+plane.
 
 Every input may carry a leading robot axis (points (R, P, 3), transforms
 (R, 4, 4), images (R, H, W, 3), planes (R, L, L)): cell ids stay local to
@@ -135,10 +136,8 @@ def lowest_bound(lowest, geo_cell, height, var, valid, L: int):
 def process_points(state: MapState, cfg, points, intensity, in_valid,
                    transform, base_z, sensor_jacobian, rotation_variance,
                    c_sb_t, p_mul_c_bm_t, b_r_bs_skew, image=None,
-                   colors=None, compute_lowest=True):
-    """Returns the processed PointBatch and the updated (geographic) lowest
-    plane; with `compute_lowest=False` (the stream fuse owns the reduction)
-    the plane comes back unchanged."""
+                   colors=None) -> PointBatch:
+    """The processed PointBatch."""
     L = cfg.map.length
     points = points.to(torch.float32)
     T = transform.to(torch.float32)
@@ -180,11 +179,6 @@ def process_points(state: MapState, cfg, points, intensity, in_valid,
     valid = valid & in_map
     sx, sy = im.geo_to_storage(gx, gy, state.start[..., None, :], L)
     cell = torch.where(valid, sx * L + sy, L * L).to(torch.int32)
-    lowest = state.lowest
-    if cfg.enable_lowest and compute_lowest:
-        lowest = lowest_bound(lowest, gx * L + gy, height, var, valid, L)
-
-    batch = PointBatch(xy=ts[..., :2], height=height, variance=var,
-                       cell=cell, color=color,
-                       intensity=intensity.to(torch.float32), valid=valid)
-    return batch, lowest
+    return PointBatch(xy=ts[..., :2], height=height, variance=var,
+                      cell=cell, color=color,
+                      intensity=intensity.to(torch.float32), valid=valid)

@@ -2,13 +2,11 @@
 motion process noise -> plane-fit features -> submap shed -> raytrace
 cleanup -> keyframe finalize.
 
-Counterpart of gem_tpu/mapping/pipeline.py `step`.  `fuse_backend`:
-
-  * "stream" (the default, the configuration the JAX package ships on an
-    accelerator): kernels/fuse_stream.py, whose aggregate pass is kernel
-    K1 and which also owns the `lowest` reduction;
-  * "segment", "sort", "pallas": point processing computes `lowest`, then
-    kernels/fuse.py fuses; "pallas" reduces through kernel K3.
+Counterpart of gem_tpu/mapping/pipeline.py `step`.  `fuse_backend` is one
+of kernels/fuse.py's `FUSE_BACKENDS`, which `fuse` dispatches, the
+`lowest` bound included: "stream" (the default, the configuration the JAX
+package ships on an accelerator; kernel K1), "segment", "sort" or
+"pallas" (kernel K3).
 
 The features are always kernel K2's wrapper, `plane_fit_features`.  As
 the JAX package picks its feature backend from the platform, each kernel
@@ -22,9 +20,11 @@ go through utils/control.py `cond` / `when`.  A single robot runs only the
 taken side: as a Python branch on the CPU, and as CUDA-graph IF nodes in
 the captured step on the card.  A fleet (R > 1), and the eager first call
 on a card, run both sides and select, leaf by leaf, what JAX's conds
-become under `vmap`.  The finalize and the staging flush write the submap
-store in place (global_map/submaps.py).  Either way `step` reads nothing
-to the host, makes no upload per frame, and captures into a CUDA graph.
+become under `vmap`.  The finalize and the staging flush are `when`
+bodies: one body on every route, which writes the submap store and the
+keyframe position in place where its mask is True (global_map/submaps.py).
+Either way `step` reads nothing to the host, makes no upload per frame,
+and captures into a CUDA graph.
 
 `ElevationPipeline` (`process`, `scan_steps`) and the fleet replay the
 step as CUDA graphs on the card (utils/graph.py, the counterpart of
@@ -52,8 +52,7 @@ from gem_tpu_torch.core.move import ShedCells, empty_shed, move, re_anchor
 from gem_tpu_torch.core.state import MapState, init_map_state
 from gem_tpu_torch.global_map import submaps as sm
 from gem_tpu_torch.kernels.features import FeatureMaps, plane_fit_features
-from gem_tpu_torch.kernels.fuse import fuse
-from gem_tpu_torch.kernels.fuse_stream import fuse_stream
+from gem_tpu_torch.kernels.fuse import check_backend, fuse
 from gem_tpu_torch.kernels.pointproc import process_points
 from gem_tpu_torch.kernels.raytrace import raytrace_cleanup
 from gem_tpu_torch.motion.updater import (MotionState, apply_process_noise,
@@ -65,9 +64,6 @@ from gem_tpu_torch.utils.device import resolve_device
 from gem_tpu_torch.utils.graph import DeviceProgram
 from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.tree import tree_map
-
-FUSE_BACKENDS = ("stream", "segment", "sort", "pallas")
-
 
 @dataclasses.dataclass(frozen=True)
 class Frame:
@@ -149,12 +145,6 @@ def _unchanged(x):
     return x
 
 
-def _check_backend(fuse_backend: str) -> None:
-    if fuse_backend not in FUSE_BACKENDS:
-        raise ValueError(f"fuse_backend {fuse_backend!r} is not one of "
-                         f"{FUSE_BACKENDS}")
-
-
 def step(state: PipelineState, frame: Frame, cfg,
          fuse_backend: str = "stream") -> tuple[PipelineState, StepOutputs]:
     """One frame.  `state` is consumed (the submap rings update in place,
@@ -181,7 +171,6 @@ def batched_step(state: PipelineState, frame: Frame, cfg,
 
 
 def _stages(state: PipelineState, frame: Frame, cfg, fuse_backend: str):
-    _check_backend(fuse_backend)
     track = frame.track_position.to(torch.float32)
     dev = track.device
     R = track.shape[0]
@@ -220,23 +209,15 @@ def _stages(state: PipelineState, frame: Frame, cfg, fuse_backend: str):
     TRACER.mark("pointproc", dev)
     sensor_jac, c_sb_t, p_bm_t, b_skew = jacobian_ingredients(
         frame.r_map_base, frame.r_base_sensor, frame.t_base_sensor)
-    stream = fuse_backend == "stream"
-    batch, lowest = process_points(
+    batch = process_points(
         map_state, cfg, frame.points, frame.intensity, frame.valid,
         frame.transform, frame.t_map_base[:, 2].to(torch.float32),
         sensor_jac, frame.pose_cov[:, 3:, 3:].to(torch.float32), c_sb_t,
-        p_bm_t, b_skew, image=frame.image, colors=frame.colors,
-        compute_lowest=not stream)
-    map_state = map_state.replace(lowest=lowest)
+        p_bm_t, b_skew, image=frame.image, colors=frame.colors)
 
     # --- fuse (K1 on the stream path, K3 on the pallas path) ----------------
     TRACER.mark("fuse", dev)
-    if stream:
-        map_state = fuse_stream(map_state, cfg, batch,
-                                with_lowest=cfg.enable_lowest,
-                                with_color=cfg.enable_color)
-    else:
-        map_state = fuse(map_state, cfg, batch, backend=fuse_backend)
+    map_state = fuse(map_state, cfg, batch, backend=fuse_backend)
 
     # --- motion process noise -----------------------------------------------
     TRACER.mark("motion", dev)
@@ -294,7 +275,7 @@ def _stages(state: PipelineState, frame: Frame, cfg, fuse_backend: str):
         keyframe_due = dist >= cfg.submap.keyframe_distance
 
         def _finalize(submaps, last_xy, when=None):
-            """The keyframe branch, in place (`when` None) or masked."""
+            """The keyframe branch, a `control.when` body."""
             TRACER.mark("finalize", dev)
             grid_pts = sm.grid_to_points(map_state, cfg, feats.traver)
             pose = torch.cat([track, frame.pose_quat.to(torch.float32)],
@@ -310,9 +291,7 @@ def _stages(state: PipelineState, frame: Frame, cfg, fuse_backend: str):
             submaps = sm.finalize_submap(submaps, grid_pts, pose,
                                          ortho=ortho, kf_points=kf_pts,
                                          kf_count=kf_count, when=when)
-            if when is None:
-                return submaps, last_xy.copy_(track[:, :2])
-            return submaps, torch.where(when[:, None], track[:, :2], last_xy)
+            return submaps, control.assign(when, last_xy, track[:, :2])
 
         submaps, last_keyframe_xy = control.when(
             keyframe_due, _finalize, submaps, last_keyframe_xy)
@@ -380,7 +359,7 @@ class ElevationPipeline:
         from gem_tpu_torch.config import validate_config
 
         validate_config(cfg)
-        _check_backend(fuse_backend)
+        check_backend(fuse_backend)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.fuse_backend = fuse_backend

@@ -8,11 +8,11 @@ one of three routes, chosen from `pred` alone:
 
   * "select": a `pred` of more than one element (a fleet: JAX's cond under
     `vmap` batches back to a select), or one on a card outside a CUDA graph
-    capture (`DeviceProgram`'s eager first call).  Both sides run and
-    `tree_select` keeps the taken one leaf by leaf; `when` calls
-    `fn(*operands, when=pred)`, the masked form of its branch.  Nothing is
-    read to the host, and the eager call warms up both sides (and the
-    conditional-node runtime below) before the capture.
+    capture (`DeviceProgram`'s eager first call).  Both sides of a `cond`
+    run and `tree_select` keeps the taken one leaf by leaf; `when` calls
+    `fn(*operands, when=pred)`.  Nothing is read to the host, and the
+    eager call warms up both sides (and the conditional-node runtime
+    below) before the capture.
   * "branch": a CPU `pred` of one element.  `bool(pred)` picks the side, as
     JAX does on the CPU; only the taken side runs.
   * "graph": a CUDA `pred` of one element while its stream is captured.
@@ -25,9 +25,14 @@ one of three routes, chosen from `pred` alone:
     written by the other body: the merged leaf is then the false side's
     (its own copy if it, too, is an older tensor), and a third IF node on
     `pred` copies the true side's leaf into it.  `when` is one IF node with
-    no other side; `fn` must write every leaf it changes into the
-    operands' own tensors and return them, since a tensor made inside a
-    body holds stale values on every replay that skips it.
+    no other side, since a tensor made inside a body holds stale values on
+    every replay that skips it.
+
+A `when` body has one form for every route: `fn(*operands, when=None)`
+on the branch and graph routes (the branch is taken), `fn(*operands,
+when=mask)` on the select route.  It writes every leaf it changes into the
+operands' own tensors, where the () or (R,) mask is True (`assign`,
+`clear`), and returns them; `when` checks that on all three routes.
 
 There is no fallback: a capture that cannot make its IF nodes raises
 `BranchError`, naming the branch, and never turns into a select.
@@ -55,7 +60,8 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from gem_tpu_torch.utils.observability import TRACER
-from gem_tpu_torch.utils.tree import tree_leaves, tree_map, tree_select
+from gem_tpu_torch.utils.tree import (lead, tree_leaves, tree_map,
+                                      tree_select)
 
 
 class BranchError(RuntimeError):
@@ -106,14 +112,14 @@ def cond(pred, true_fn, false_fn, *operands):
 
 def when(pred, fn, *operands):
     """`fn(*operands)` where `pred`, else the operands as they are.  `fn`
-    updates its operands in place and returns them; `fn(*operands,
-    when=mask)` is its masked form, which keeps the old values where the
-    (R,) or () `mask` is False."""
+    updates its operands in place and returns them; on the select route
+    it is called with `when=pred` and writes only where that is True (see
+    the module docstring)."""
     kind = route(pred)
     if kind == "select":
         TRACER.count("control.selects")
         _warm_up(pred)
-        return fn(*operands, when=pred)
+        return _in_place(fn, fn(*operands, when=pred), operands)
     if kind == "branch":
         if not bool(pred):
             return _identity(operands)
@@ -125,6 +131,23 @@ def when(pred, fn, *operands):
         return _in_place(fn, out, operands)
     except Exception as e:
         raise BranchError(f"{name} under CUDA graph capture: {e}") from e
+
+
+def select(when, new, old):
+    """`new` where a `when` body writes (everywhere for `when` None), else
+    `old`; a () or (R,) `when` broadcasts over the trailing dims."""
+    return new if when is None else tree_select(when, new, old)
+
+
+def assign(when, leaf, new):
+    """A `when` body's write of `new` into its operand `leaf`."""
+    return leaf.copy_(select(when, new, leaf))
+
+
+def clear(when, leaf):
+    """A `when` body's zeroing of its operand `leaf`."""
+    return leaf.zero_() if when is None \
+        else leaf.masked_fill_(lead(when, leaf), 0)
 
 
 def _warm_up(pred) -> None:

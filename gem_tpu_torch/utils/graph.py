@@ -26,9 +26,9 @@ finds on the capturing stream itself, and `write_back` runs after them, on
 the merged outputs.  So each frame launches each kernel once on the
 device, the first one included.  A capture that fails raises, naming the
 branch that broke when a branch did, after the eager run has advanced the
-state; no graph is kept, so the next call tries again.  There is no eager
-fallback.  All graphs of one program share one memory pool, and they are
-replayed one at a time.
+state; no graph is kept (the failed one is destroyed at once), so the
+next call tries again.  There is no eager fallback.  All graphs of one
+program share one memory pool, and they are replayed one at a time.
 
 On CPU tensors the function is called directly, as JAX on the CPU runs the
 same function.
@@ -199,6 +199,10 @@ class DeviceProgram:
                     static_out)
                 write_back(self._buffers, new_state)
         except RuntimeError as e:
+            # destroy the half-made graph now: the exception's frames hold
+            # it, and a collection that destroys it during a later capture
+            # invalidates that capture (or crashes one with IF nodes)
+            graph.reset()
             name = getattr(fn, "func", fn).__name__
             # a failed IF node may surface as the capture's end failing
             cause = e

@@ -59,12 +59,18 @@ def test_cond_and_when_run_only_the_taken_side(taken):
     assert log == (["bump"] if taken else [])
 
 
-def test_when_refuses_a_branch_that_is_not_in_place():
+@pytest.mark.parametrize("pred", [True, [True, False]],
+                         ids=["branch", "select"])
+def test_when_refuses_a_branch_that_is_not_in_place(pred):
+    """A body that returns new tensors fails on the branch route (a () CPU
+    predicate) and on the select route (a (2,) one) alike."""
+    pred = torch.tensor(pred)
+
     def fresh(store, when=None):
         return {"n": store["n"] + 1}
 
     with pytest.raises(control.BranchError, match="in place"):
-        control.when(torch.tensor(True), fresh, {"n": torch.zeros(())})
+        control.when(pred, fresh, {"n": torch.zeros(pred.shape)})
 
 
 def test_robot_axis_selects_as_per_robot_branching():
@@ -87,10 +93,13 @@ def test_robot_axis_selects_as_per_robot_branching():
 
     def bump(store, when=None):
         seen.append(when)
-        return {"n": torch.where(when, store["n"] + 1, store["n"])}
+        control.assign(when, store["n"], store["n"] + 1)
+        return store
 
-    out = control.when(pred, bump, {"n": torch.zeros(2, dtype=torch.int32)})
-    assert out["n"].tolist() == [1, 0] and seen[0] is pred
+    store = {"n": torch.zeros(2, dtype=torch.int32)}
+    out = control.when(pred, bump, store)
+    assert out is store and store["n"].tolist() == [1, 0]
+    assert seen[0] is pred
     assert control.route(pred) == "select"
     assert control.route(pred[:1]) == control.route(pred[0]) == "branch"
 

@@ -32,6 +32,7 @@ from gem_tpu_torch.core import move as tmove
 from gem_tpu_torch.core.state import MapState
 from gem_tpu_torch.io import replay as treplay
 from gem_tpu_torch.kernels import pointproc as tpp
+from gem_tpu_torch.kernels.fuse import FUSE_BACKENDS, fuse as tfuse
 from gem_tpu_torch.motion import updater as tmot
 from gem_tpu_torch.sensors import models as tsens
 
@@ -368,7 +369,7 @@ def test_process_points_matches_jax(case):
         js, cfg, pts, inten, valid, tf, jnp.float32(0.2), ji[0], cov,
         *ji[1:], image=None if image is None else jnp.asarray(image),
         colors=jnp.asarray(colors), compute_lowest=False)
-    tb, _ = tpp.process_points(
+    tb = tpp.process_points(
         ts, cfg, T(pts), T(inten), T(valid), T(tf), torch.tensor(0.2),
         ti[0], T(cov), *ti[1:], image=None if image is None else T(image),
         colors=T(colors))
@@ -404,9 +405,9 @@ def test_colorize_matches_jax():
 
 
 def test_lowest_reduction_single_cell():
-    """The pointproc `lowest` reduction (its parity with gem_tpu is
-    tests/test_torch_fuse.py): eight points in one cell at 0.5 m give that
-    geographic cell h + 3v of the lowest, max-v winner."""
+    """The `lowest` bound that every fuse backend applies (its parity with
+    gem_tpu is tests/test_torch_fuse.py): eight points in one cell at 0.5
+    m give that geographic cell h + 3v of the lowest, max-v winner."""
     cfg = benchmark_config(length=16, max_points=8).replace(
         body_filter=BodyFilterConfig(mode="none"))
     _, ts = _maps(cfg.map, seed=0)
@@ -414,14 +415,16 @@ def test_lowest_reduction_single_cell():
     z = torch.zeros(3)
     pts = torch.zeros(8, 3)
     pts[:, 2] = torch.tensor([0.5, 0.7, 0.5, 0.9, 1.0, 0.6, 0.8, 0.5])
-    batch, low = tpp.process_points(
+    batch = tpp.process_points(
         ts, cfg, pts, torch.zeros(8), torch.ones(8, dtype=torch.bool),
         torch.eye(4), torch.tensor(0.0), z, torch.eye(3), torch.eye(3), z,
-        torch.zeros(3, 3), compute_lowest=True)
-    changed = torch.nonzero(low != 100.0)
-    assert changed.shape[0] == 1
+        torch.zeros(3, 3))
     want = np.float32(0.5) + np.float32(3.0) * N(batch.variance)[0]
-    assert N(low)[tuple(changed[0].tolist())] == want
+    for backend in FUSE_BACKENDS:
+        low = tfuse(ts, cfg, batch, backend=backend).lowest
+        changed = torch.nonzero(low != 100.0)
+        assert changed.shape[0] == 1, backend
+        assert N(low)[tuple(changed[0].tolist())] == want, backend
 
 
 # --- replay -------------------------------------------------------------------

@@ -26,7 +26,7 @@ from gem_tpu.kernels.fuse import fuse as jfuse
 from gem_tpu.sensors import models as jsens
 
 from gem_tpu_torch.kernels import pointproc as tpp
-from gem_tpu_torch.kernels.fuse import fuse as tfuse
+from gem_tpu_torch.kernels.fuse import FUSE_BACKENDS, fuse as tfuse
 
 from test_torch_fuse_stream import N, T, _batches, _random_batches, _states
 
@@ -126,16 +126,16 @@ def test_lowest_reduction_matches_jax(start):
                            T(jbatch.variance), T(ok), L)
     np.testing.assert_array_equal(N(low), np.asarray(jlow))
     assert (N(low) != N(ts.lowest)).sum() > 50
-    # through process_points: the port's own points, the same reduction
-    tbatch, tlow = tpp.process_points(
+    # through process_points and fuse: the port's own points, the same
+    # reduction, whichever backend fuses
+    tbatch = tpp.process_points(
         ts, cfg, T(pts), torch.ones(P), T(valid), torch.eye(4),
         torch.tensor(0.0), T(ji[0]), T(cov), *[T(a) for a in ji[1:]])
     tcell = N(tbatch.cell)
     tgeo = ((tcell // L - start[0]) % L) * L + (tcell % L - start[1]) % L
-    np.testing.assert_array_equal(N(tlow), N(tpp.lowest_bound(
-        ts.lowest, T(tgeo), tbatch.height, tbatch.variance, tbatch.valid, L)))
-    _, same = tpp.process_points(
-        ts, cfg, T(pts), torch.ones(P), T(valid), torch.eye(4),
-        torch.tensor(0.0), T(ji[0]), T(cov), *[T(a) for a in ji[1:]],
-        compute_lowest=False)
-    assert same is ts.lowest
+    want = N(tpp.lowest_bound(ts.lowest, T(tgeo), tbatch.height,
+                              tbatch.variance, tbatch.valid, L))
+    for backend in FUSE_BACKENDS:
+        np.testing.assert_array_equal(
+            N(tfuse(ts, cfg, tbatch, backend=backend).lowest), want,
+            err_msg=backend)

@@ -17,6 +17,7 @@ from gem_tpu.global_map import submaps as jsm
 from gem_tpu_torch.core.move import ShedCells as TShed
 from gem_tpu_torch.core.state import MapState
 from gem_tpu_torch.global_map import submaps as tsm
+from gem_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 def _cfg(staging, **kw):
@@ -150,3 +151,48 @@ def test_ortho_ring_matches_jax():
                             ortho=torch.from_numpy(ortho))
     np.testing.assert_array_equal(b.orthos.numpy(), np.asarray(a.orthos))
     assert b.orthos[0].sum() > 0 and int(b.orthos[1:].sum()) == 0
+
+
+@pytest.mark.parametrize("staging", [0, 4])
+def test_masked_bodies_write_in_place_where_taken(staging):
+    """`finalize_submap` and `flush_staging` with `when=[True, False]` on
+    two stacked stores: robot 0 bitwise the unmasked call on its own
+    store, robot 1 bitwise unchanged, and every returned leaf the
+    operand's own tensor.  Every ring is written (ortho, keyframe scan)."""
+    cfg = _cfg(staging, store_ortho=True, keyframe_scan_points=8)
+    ops = [(None, 20, 0), (None, 35, 2), "finalize", (None, 30, 1)]
+    stores = [_drive(cfg, ops, seed=s) for s in (0, 1)]
+    rng = np.random.default_rng(5)
+    L = cfg.map.length
+    grid = tsm.PointBuffer(**{f: torch.from_numpy(rng.normal(
+        size=(2, L * L)).astype(np.float32)) for f in
+        ("x", "y", "z", "variance", "intensity", "traver")},
+        color=torch.from_numpy(rng.integers(0, 1 << 24, (2, L * L),
+                                            dtype=np.int32)),
+        valid=torch.from_numpy(rng.random((2, L * L)) < 0.3))
+    ortho = torch.from_numpy(rng.integers(0, 256, (2, L, L, 3),
+                                          dtype=np.uint8))
+    scan = torch.from_numpy(rng.normal(size=(2, 8, 3)).astype(np.float32))
+    kw = lambda r: dict(ortho=ortho[r], kf_points=scan[r],
+                        kf_count=torch.tensor([5, 8][r], dtype=torch.int32))
+    pose = torch.arange(14, dtype=torch.float32).reshape(2, 7)
+    bodies = {
+        "flush_staging": lambda st, r, when=None: tsm.flush_staging(
+            st, when=when),
+        "finalize_submap": lambda st, r, when=None: tsm.finalize_submap(
+            st, tree_map(lambda x: x[r], grid), pose[r], when=when,
+            **kw(r))}
+    whole = slice(None)
+    for name, body in bodies.items():
+        two = tree_map(lambda *xs: torch.stack(xs), *stores)
+        before = tree_map(torch.clone, two)
+        ref = body(tree_map(torch.clone, stores[0]), 0)
+        out = body(two, whole, when=torch.tensor([True, False]))
+        got, want = tree_leaves(out), tree_leaves(two)
+        assert all(got[k] is want[k] for k in want), name
+        for r, exp in ((0, ref), (1, tree_map(lambda x: x[1], before))):
+            a, b = tree_leaves(exp), tree_leaves(tree_map(lambda x: x[r],
+                                                          out))
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            assert not bad, (name, r, bad)
+        stores = [tree_map(lambda x: x[r].clone(), out) for r in (0, 1)]
