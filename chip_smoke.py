@@ -104,8 +104,11 @@ host's launch overhead is left out):
      `refuse_rounds` (keys sorted once per event, one K4 launch per round
      with a pair) against the plain per-round join on the card, bitwise,
      launches counted; K4's ms per launch (one CUDA graph) beside its byte
-     bound, the key sort's ms, a plain round's ms (one CUDA graph), and
-     both joins' event ms on the host clock, in turns.
+     bound, the key sort's ms, a plain round's ms (one CUDA graph), both
+     joins' event ms on the host clock, in turns, and the event's dispatch
+     (host ms of the calls, then synchronised) as one native call
+     (`refuse_join_rounds`) against one `refuse_join` call per round, in
+     turns, with both launch counts.
  15. K5 (compact_append), the submap store's compaction, at the main path's
      shapes (the fleet's (4, 10^6) finalize and (4, 64000) shed append,
      the single robot's 10^6-point finalize and 2,048,000-point staging
@@ -1627,11 +1630,16 @@ def phase_k4(dev):
     variance and the fused count, launches counted; then K4's ms per launch
     (the event's launches in one CUDA graph) beside its byte bound, the
     once-per-event key sort's ms, a plain round's ms (round 0 in one CUDA
-    graph), and both joins' event ms on the host clock, synchronised, in
-    turns.  Returns K4's row of the kernel table."""
+    graph), both joins' event ms on the host clock, synchronised, in
+    turns, and the host ms of the event's K4 dispatch: every round in one
+    native call (`refuse_join_rounds`, as `refuse_rounds` makes it)
+    against one `refuse_join` call per round with a pair (the per-round
+    path), in turns, their launch counts equal.  Returns K4's row of the
+    kernel table."""
     from gem_tpu_torch.config import benchmark_config
     from gem_tpu_torch.global_map import loop_closure as lc
-    from gem_tpu_torch.kernels.refuse_join import refuse_join
+    from gem_tpu_torch.kernels.refuse_join import (refuse_join,
+                                                   refuse_join_rounds)
 
     cfg = benchmark_config()
     K, C = cfg.submap.max_submaps, cfg.submap.capacity
@@ -1690,13 +1698,35 @@ def phase_k4(dev):
             event[side].append(timed(
                 lambda: fn(slots, rounds, valid, res), True)[1])
     med = {k: statistics.median(v[1:]) for k, v in event.items()}
+
+    def per_round():
+        return sum(refuse_join(keys, rows, z, var, rounds[r][valid[r]], total)
+                   for r in range(rounds.shape[0]) if valid[r].any())
+
+    paths = {"one_call": lambda: refuse_join_rounds(
+        keys, rows, z, var, rounds, valid, total), "per_round": per_round}
+    dispatch = {k: [] for k in paths}
+    counted = {}
+    for rep in range(8):
+        for side in (tuple(paths) if rep % 2 == 0 else tuple(paths)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counted[side] = paths[side]()
+            dispatch[side].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    fail_unless(counted["one_call"] == counted["per_round"] == launches,
+                f"K4 dispatch: {counted} launches, {launches} expected")
+    d_med = {k: statistics.median(v[1:]) for k, v in dispatch.items()}
     print(f"phase 14 K4 refuse_join K={K} C={C} pairs={len(pairs)} rounds="
           f"{rounds.shape[0]} ({len(live)} with a pair) fused={fused}: ok "
           f"z_variance_count=bitwise launches={launches} kernel_ms_per_launch"
           f"={k4_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) share="
           f"{b_ms / k4_ms:.2f} key_sort_ms={sort_ms:.4f} plain_round_ms="
           f"{plain_ms:.4f} event_ms_median(host, synced) k4={med['k4']:.3f} "
-          f"plain={med['plain']:.3f}", flush=True)
+          f"plain={med['plain']:.3f} dispatch_host_ms_median one_call="
+          f"{d_med['one_call']:.4f} ({counted['one_call']} launches) "
+          f"per_round={d_med['per_round']:.4f} ({counted['per_round']} "
+          f"launches)", flush=True)
     return {"name": "refuse_join", "route": "cuda",
             "source": "gem_tpu_torch/csrc/refuse_join.cu",
             "replaces": "none: added for the re-stitch join",
@@ -1704,7 +1734,9 @@ def phase_k4(dev):
             "max_abs_err": 0.0, "ms": k4_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "key_sort_ms": sort_ms, "event_ms": med["k4"],
-            "plain_event_ms": med["plain"]}
+            "plain_event_ms": med["plain"],
+            "dispatch_host_ms": d_med["one_call"],
+            "per_round_dispatch_host_ms": d_med["per_round"]}
 
 
 def compact_inputs(lead, n, C, dev, seed):

@@ -44,9 +44,16 @@
 // threads then search only that stretch, which the block's neighbouring
 // keys share in L1.  The block's fused count is one __syncthreads_count and
 // one 64-bit atomic add.
+//
+// The host side: `gem_refuse_join_rounds` takes a whole event's schedule
+// and makes every round's launches in one call, after checking every round
+// once; `gem_refuse_join` launches one round (chip_smoke.py, the tests).
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
@@ -146,20 +153,11 @@ refuse_join_kernel(const Pairs pairs, const int64_t* __restrict__ keys,
     atomicAdd(total, static_cast<unsigned long long>(n));
 }
 
-}  // namespace
-
-// pairs: host int32 (n_pairs, 2) slot indices, vertex-disjoint; keys (K, C)
-// int64, each slot's sorted; rows (K, C) int32, each sorted key's source
-// row; z, var (K, C) float32, updated in place; total: one int64 on the
-// device, added to.  One launch per kMaxPairs pairs.
-extern "C" int gem_refuse_join(const void* pairs, int n_pairs,
-                               const void* keys, const void* rows, void* z,
-                               void* var, int C, void* total, void* stream,
-                               int* launched) {
-  *launched = 0;
-  if (n_pairs <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
-  const int32_t* ij = static_cast<const int32_t*>(pairs);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The launches of one round: its n vertex-disjoint pairs (host int32 (n,
+// 2)), kMaxPairs to a launch.
+int launch_round(const int32_t* ij, int n_pairs, const void* keys,
+                 const void* rows, void* z, void* var, int C, void* total,
+                 cudaStream_t st, int* launched) {
   const int blocks = (C + kThreads - 1) / kThreads;
   for (int start = 0; start < n_pairs; start += kMaxPairs) {
     const int n = n_pairs - start < kMaxPairs ? n_pairs - start : kMaxPairs;
@@ -173,6 +171,69 @@ extern "C" int gem_refuse_join(const void* pairs, int n_pairs,
     ++*launched;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// pairs: host int32 (n_pairs, 2) slot indices, vertex-disjoint; keys (K, C)
+// int64, each slot's sorted; rows (K, C) int32, each sorted key's source
+// row; z, var (K, C) float32, updated in place; total: one int64 on the
+// device, added to.  One launch per kMaxPairs pairs.
+extern "C" int gem_refuse_join(const void* pairs, int n_pairs,
+                               const void* keys, const void* rows, void* z,
+                               void* var, int C, void* total, void* stream,
+                               int* launched) {
+  *launched = 0;
+  if (n_pairs <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  const int err = launch_round(static_cast<const int32_t*>(pairs), n_pairs,
+                               keys, rows, z, var, C, total,
+                               static_cast<cudaStream_t>(stream), launched);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// A whole event's rounds in one call: rounds host int32 (R, P, 2), valid
+// host bool (R, P); the other arguments as gem_refuse_join's over K slots.
+// Every round is checked before the first launch: -1 if a valid lane names
+// a slot outside [0, K), -2 if a slot occurs twice within a round, and
+// nothing is launched.  Then each round's valid lanes, in lane order, are
+// launched as gem_refuse_join launches them, round after round.
+extern "C" int gem_refuse_join_rounds(const void* rounds, const void* valid,
+                                      int R, int P, int K, const void* keys,
+                                      const void* rows, void* z, void* var,
+                                      int C, void* total, void* stream,
+                                      int* launched) {
+  *launched = 0;
+  const int32_t* rd = static_cast<const int32_t*>(rounds);
+  const bool* ok = static_cast<const bool*>(valid);
+  std::vector<int> seen(K > 0 ? K : 0, -1);   // the last round using a slot
+  for (int r = 0; r < R; ++r) {
+    for (int p = 0; p < P; ++p) {
+      if (!ok[r * P + p]) continue;
+      for (int e = 0; e < 2; ++e) {
+        const int s = rd[2 * (r * P + p) + e];
+        if (s < 0 || s >= K) return -1;
+        if (seen[s] == r) return -2;
+        seen[s] = r;
+      }
+    }
+  }
+  if (C <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  std::vector<int32_t> ij(2 * static_cast<size_t>(P));
+  for (int r = 0; r < R; ++r) {
+    int n = 0;
+    for (int p = 0; p < P; ++p) {
+      if (!ok[r * P + p]) continue;
+      ij[2 * n] = rd[2 * (r * P + p)];
+      ij[2 * n + 1] = rd[2 * (r * P + p) + 1];
+      ++n;
+    }
+    if (n == 0) continue;
+    const int err = launch_round(ij.data(), n, keys, rows, z, var, C, total,
+                                 st, launched);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,26 +17,34 @@ tensors a slot's keys, which depend only on its x, y and valid, are sorted
 once per event (`_sorted_keys`) and each round with a valid pair is one
 launch of kernel K4 (kernels/refuse_join.py), which joins last a row
 against first b row, the rows the plain join's sort makes adjacent: the
-same z, variance and count, bitwise.
+same z, variance and count, bitwise.  One native call makes every round's
+launches.  `apply_loop_closure` queues the sort before it plans the pairs
+and hands it to the join, so the card sorts while the host plans: the plan
+(`select_pairs`, `schedule_rounds`) is array operations, with the
+schedule's first-fit as host code in the native library (native/).
 
 Each `apply_loop_closure` call is one unit of the tracer
 (utils/observability.py): the span `gem.restitch.apply` around it, with
 children `gem.restitch.corrections`, `.transform`, `.select_pairs`,
-`.schedule` and `.refuse` (one `gem.restitch.round` per round), a
-`gem.restitch.read` around each device->host read and a
-`gem.restitch.upload` around each host->device copy (both wait for every
-operation queued before them), counted as `restitch.reads` and
-`restitch.uploads`; stamps `refuse` and `refused` around `refuse_rounds`;
+`.schedule` and `.refuse` (on the CPU's plain join one `gem.restitch.round`
+per round), a `gem.restitch.read` around each device->host read (the
+centers' waits only for the transform, the others for every operation
+queued before them) and a `gem.restitch.upload` around each host->device
+copy (which waits for the device), counted as `restitch.reads` and
+`restitch.uploads`; stamps `refuse` and `refused` around the join;
 on the card, the counter `restitch.joins` for each K4 launch.
 """
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from gem_tpu_torch import native
 from gem_tpu_torch.global_map.submaps import PointBuffer, SubmapStore
-from gem_tpu_torch.kernels.refuse_join import refuse_join
+from gem_tpu_torch.kernels.refuse_join import refuse_join_rounds
 from gem_tpu_torch.motion.updater import quat_to_rotmat
 from gem_tpu_torch.utils.observability import TRACER
 from gem_tpu_torch.utils.precision import f32_recip
@@ -50,6 +58,26 @@ def _read(t):
     TRACER.count("restitch.reads")
     with TRACER.span("gem.restitch.read"):
         return t.cpu()
+
+
+def _read_later(t):
+    """Start reading `t` to the host, waiting only for what is queued so
+    far: on the card a non-blocking copy into pinned memory and an event.
+    Returns the function that waits for it (one of `restitch.reads`, in a
+    `gem.restitch.read` span) and gives the host array."""
+    if t.device.type != "cuda":
+        return lambda: _read(t).numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait():
+        TRACER.count("restitch.reads")
+        with TRACER.span("gem.restitch.read"):
+            copied.synchronize()
+        return host.numpy()
+    return wait
 
 
 def _upload(a, device):
@@ -194,7 +222,8 @@ def refuse_rounds(slots: PointBuffer, rounds, rounds_valid,
     Returns (slots, total fused cells as a 0-d int tensor).
     """
     if slots.z.device.type == "cuda":
-        return _refuse_rounds_sorted(slots, rounds, rounds_valid, resolution)
+        return _refuse_rounds_sorted(slots, rounds, rounds_valid,
+                                     _sorted_keys(slots, resolution))
     return refuse_rounds_plain(slots, rounds, rounds_valid, resolution)
 
 
@@ -213,20 +242,16 @@ def _sorted_keys(slots: PointBuffer, resolution: float):
 
 
 def _refuse_rounds_sorted(slots: PointBuffer, rounds, rounds_valid,
-                          resolution: float):
-    """`refuse_rounds` on the card: the keys sorted once, then one K4
-    launch per round with a valid pair, on clones of z and variance."""
-    rounds = np.asarray(rounds)
-    valid = np.asarray(rounds_valid, dtype=bool)
-    keys, rows = _sorted_keys(slots, resolution)
+                          sorted_keys):
+    """`refuse_rounds` on the card from `sorted_keys`, the slots'
+    `_sorted_keys`: every round's K4 launches in one native call, on clones
+    of z and variance."""
+    keys, rows = sorted_keys
     z = slots.z.clone(memory_format=torch.contiguous_format)
     var = slots.variance.clone(memory_format=torch.contiguous_format)
     total = torch.zeros((), dtype=torch.int64, device=z.device)
-    for r in range(rounds.shape[0]):
-        with TRACER.span("gem.restitch.round"):
-            if valid[r].any():
-                TRACER.count("restitch.joins", refuse_join(
-                    keys, rows, z, var, rounds[r][valid[r]], total))
+    TRACER.count("restitch.joins", refuse_join_rounds(
+        keys, rows, z, var, rounds, rounds_valid, total))
     return slots.replace(z=z, variance=var), total
 
 
@@ -269,46 +294,51 @@ def select_pairs(centers: np.ndarray, radius: float,
     """Directed overlap pairs, capped at each submap's `max_per_submap`
     NEAREST neighbours (the reference's kd radius query is uncapped,
     src/ElevationMapping.cpp:834-839).  Order matches the uncapped
-    i-major enumeration so capped == uncapped whenever the cap is slack."""
+    i-major enumeration so capped == uncapped whenever the cap is slack.
+    As array operations: a distance mask marks each submap's candidates, a
+    stable argsort of the masked distances ranks them (ties in j order, as
+    a stable sort by distance leaves them), and the candidates ranked below
+    the cap are read out i-major, j ascending, as (int, int) tuples.  The
+    distances are `np.linalg.norm`'s arithmetic over (x, y), written out."""
     n = centers.shape[0]
-    d = np.linalg.norm(centers[:, None, :] - centers[None, :, :], axis=-1)
-    pairs = []
-    for i in range(n):
-        js = [j for j in range(n) if j != i and d[i, j] < radius]
-        if len(js) > max_per_submap:
-            js_sorted = sorted(js, key=lambda j: d[i, j])[:max_per_submap]
-            keep = set(js_sorted)
-            js = [j for j in js if j in keep]   # preserve j-order
-        pairs.extend((i, j) for j in js)
-    return pairs
+    dx = centers[:, None, 0] - centers[None, :, 0]
+    dy = centers[:, None, 1] - centers[None, :, 1]
+    d = np.sqrt(dx * dx + dy * dy)
+    near = d < radius
+    np.fill_diagonal(near, False)
+    order = np.argsort(np.where(near, d, np.inf), axis=1, kind="stable")
+    rank = np.empty_like(order)
+    np.put_along_axis(rank, order, np.arange(n)[None, :], axis=1)
+    i, j = np.nonzero(near & (rank < max_per_submap))
+    return list(zip(i.tolist(), j.tolist()))
 
 
-def schedule_rounds(pairs: list) -> tuple[np.ndarray, np.ndarray]:
+def _pair_array(pairs) -> np.ndarray:
+    """(i, j) pairs, a list of tuples or an array, as an (n, 2) int32
+    array."""
+    if isinstance(pairs, np.ndarray):
+        return pairs.astype(np.int32, copy=False).reshape(-1, 2)
+    return np.fromiter(itertools.chain.from_iterable(pairs), np.int32,
+                       2 * len(pairs)).reshape(-1, 2)
+
+
+def schedule_rounds(pairs) -> tuple[np.ndarray, np.ndarray]:
     """First-fit matching schedule: each pair goes to the first round where
     neither submap is already used, so pairs within a round are
     vertex-disjoint (safe to vmap) and the round count is bounded by the
     graph's edge-chromatic number (~max submap degree), NOT the pair
     count.  The resulting canonical fusion order is round-major; see
-    refuse_rounds.  Returns (rounds (R, P, 2) i32, valid (R, P) bool),
-    both padded to powers of two to bound recompiles across events."""
-    used: list = []       # per round: set of submaps touched
-    levels: list = []
-    for (i, j) in pairs:
-        for r in range(len(levels)):
-            if i not in used[r] and j not in used[r]:
-                levels[r].append((i, j))
-                used[r].update((i, j))
-                break
-        else:
-            levels.append([(i, j)])
-            used.append({i, j})
-    R = _next_pow2(max(len(levels), 1))
-    P = _next_pow2(max((len(l) for l in levels), default=1))
-    rounds = np.zeros((R, P, 2), np.int32)
-    valid = np.zeros((R, P), bool)
-    for r, l in enumerate(levels):
-        rounds[r, :len(l)] = np.asarray(l, np.int32)
-        valid[r, :len(l)] = True
+    refuse_rounds.  `pairs`: a list of (i, j) or an (n, 2) array of slots
+    >= 0.  Returns (rounds (R, P, 2) i32, valid (R, P) bool), both padded to
+    powers of two to bound recompiles across events.  The first-fit is
+    `native.first_fit_rounds`; NumPy places the pairs."""
+    p = _pair_array(pairs)
+    rnd, lane, n_rounds, max_lanes = native.first_fit_rounds(p)
+    rounds = np.zeros((_next_pow2(max(n_rounds, 1)),
+                       _next_pow2(max(max_lanes, 1)), 2), np.int32)
+    valid = np.zeros(rounds.shape[:2], bool)
+    rounds[rnd, lane] = p
+    valid[rnd, lane] = True
     return rounds, valid
 
 
@@ -355,30 +385,38 @@ def _restitch(store: SubmapStore, cfg, opt_poses):
         T = relative_transforms(opt, store.poses)
         eye = torch.eye(4, dtype=torch.float32, device=dev).expand_as(T)
         full_T = torch.where(_upload(tmask, dev)[:, None, None], T, eye)
-        slots = transform_submaps(store.slots, full_T)
+        moved = transform_submaps(store.slots, full_T)
         part_dev = _upload(part, dev)
         poses = torch.where(part_dev[:, None], opt, store.poses)
         centers = torch.where(part_dev[:, None], opt[:, :2], store.centers)
 
     # overlap pairs among corrected submaps (center distance < radius),
-    # bounded at nearest-M per submap, batched into vertex-disjoint rounds
+    # bounded at nearest-M per submap, batched into vertex-disjoint rounds;
+    # on the card the keys are sorted meanwhile, queued after the centers'
+    # copy so that its read waits only for the transform (a pair needs two
+    # corrected submaps)
     idx = np.nonzero(part)[0]
-    centers_np = _read(centers).numpy()
-    with TRACER.span("gem.restitch.select_pairs"):
-        sub_pairs = select_pairs(centers_np[idx], cfg.submap.overlap_radius,
-                                 cfg.submap.max_pairs_per_submap)
-        pairs = [(int(idx[i]), int(idx[j])) for i, j in sub_pairs]
-
     res = cfg.submap.dedup_cell_quantum or cfg.map.resolution
+    read_centers = _read_later(centers)
+    keys = (_sorted_keys(moved, res) if dev.type == "cuda" and n > 1
+            else None)
+    centers_np = read_centers()
+    with TRACER.span("gem.restitch.select_pairs"):
+        pairs = idx[_pair_array(select_pairs(
+            centers_np[idx], cfg.submap.overlap_radius,
+            cfg.submap.max_pairs_per_submap))]
+    slots = moved
     n_cells = 0
     n_rounds = 0
-    if pairs:
+    if len(pairs):
         with TRACER.span("gem.restitch.schedule"):
             rounds, valid = schedule_rounds(pairs)
         n_rounds = rounds.shape[0]
         with TRACER.span("gem.restitch.refuse"):
             TRACER.mark("refuse", dev)
-            slots, nf = refuse_rounds(slots, rounds, valid, res)
+            slots, nf = (refuse_rounds(moved, rounds, valid, res)
+                         if keys is None else
+                         _refuse_rounds_sorted(moved, rounds, valid, keys))
             TRACER.mark("refused", dev)
             n_cells = int(_read(nf))
 

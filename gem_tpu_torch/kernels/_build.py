@@ -78,6 +78,11 @@ _SIGNATURES = {
     # (out)
     "gem_refuse_join": (_P, _I, _P, _P, _P, _P, _I, _P, _P,
                         ctypes.POINTER(_I)),
+    # K4, every round of an event in one call: rounds (host int32), valid
+    # (host bool), R, P, K, then as gem_refuse_join from the sorted keys;
+    # -1 / -2 for a slot out of range / twice in a round, nothing launched
+    "gem_refuse_join_rounds": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                               _P, ctypes.POINTER(_I)),
     # K5 (csrc/compact_append.cu): the inputs', the buffer's and the
     # outputs' eight column pointers (host arrays), count, out count,
     # dropped, tile counts (scratch), rows, n, C, stream

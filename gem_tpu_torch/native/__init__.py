@@ -1,5 +1,6 @@
 # A copy of gem_tpu/native/__init__.py (the port reads nothing under
-# gem_tpu/), building its library beside the CUDA one instead of in place.
+# gem_tpu/), building its library beside the CUDA one instead of in place,
+# with the re-stitch's first-fit schedule added.
 """ctypes bindings for the C++ runtime library (gem_native.cpp).
 
 Builds `libgem_native_<hash>.so` with g++ at first use into
@@ -95,6 +96,11 @@ def _load() -> Optional[ctypes.CDLL]:
                                         ctypes.c_long]
     lib.gem_prefetcher_destroy.restype = None
     lib.gem_prefetcher_destroy.argtypes = [ctypes.c_int]
+    lib.gem_first_fit_rounds.restype = ctypes.c_int
+    lib.gem_first_fit_rounds.argtypes = [i32p, ctypes.c_int, ctypes.c_int,
+                                         i32p, i32p,
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)]
     _lib = lib
     return _lib
 
@@ -171,6 +177,47 @@ def dedup_cells(x, y, variance, valid=None, resolution=0.1):
     k_sorted = key[order]
     firsts = np.concatenate([[True], k_sorted[1:] != k_sorted[:-1]])
     return np.sort(order[firsts])
+
+
+def first_fit_rounds(pairs):
+    """The first-fit round schedule of `global_map/loop_closure.py`
+    `schedule_rounds`: each pair ((n, 2) slots >= 0, in order) goes to the
+    lowest round in which neither of its slots is used yet.  Returns (each
+    pair's round (n,) int32, its lane, its place among the round's pairs
+    (n,) int32, the number of rounds, the most pairs in one round)."""
+    pairs = np.ascontiguousarray(pairs, np.int32).reshape(-1, 2)
+    n = len(pairs)
+    slots = int(pairs.max()) + 1 if n else 0
+    lib = _load()
+    if lib is not None:
+        rnd = np.empty(n, np.int32)
+        lane = np.empty(n, np.int32)
+        n_rounds, max_lanes = ctypes.c_int(0), ctypes.c_int(0)
+        if lib.gem_first_fit_rounds(pairs, n, slots, rnd, lane,
+                                    ctypes.byref(n_rounds),
+                                    ctypes.byref(max_lanes)) != 0:
+            raise ValueError("first_fit_rounds: slots must be >= 0")
+        return rnd, lane, n_rounds.value, max_lanes.value
+    # Python fallback: one round bitmask per slot, a pair's round the
+    # lowest bit clear in both of its slots' masks
+    if n and pairs.min() < 0:
+        raise ValueError("first_fit_rounds: slots must be >= 0")
+    used = [0] * slots
+    count: list = []      # pairs per round so far
+    rnd, lane = [], []
+    for i, j in pairs.tolist():
+        m = used[i] | used[j]
+        bit = ~m & (m + 1)
+        used[i] |= bit
+        used[j] |= bit
+        r = bit.bit_length() - 1
+        if r == len(count):
+            count.append(0)
+        rnd.append(r)
+        lane.append(count[r])
+        count[r] += 1
+    return (np.asarray(rnd, np.int32), np.asarray(lane, np.int32),
+            len(count), max(count, default=0))
 
 
 class FramePrefetcher:

@@ -1,5 +1,5 @@
 // A copy of gem_tpu/native/gem_native.cpp (the port reads nothing under
-// gem_tpu/).
+// gem_tpu/), with the re-stitch's first-fit schedule added.
 // gem_native: C runtime components for gem_tpu.
 //
 // The reference's host runtime is C++: the VoxelGrid pre-filter chains
@@ -14,10 +14,12 @@
 //   gem_dedup_cells       quantized-cell dedup keeping the min-variance hit
 //   gem_write_pcd / gem_read_pcd_info / gem_read_pcd_data
 //   gem_prefetcher_*      background-thread file loader with a ring buffer
+//   gem_first_fit_rounds  the re-stitch's first-fit round schedule
 //
 // Built at first use by gem_tpu_torch/native/__init__.py into
 // build/gem_tpu_torch/ (g++ -O3 -shared; no external deps).
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <condition_variable>
@@ -309,6 +311,46 @@ void gem_prefetcher_destroy(int handle) {
   p->cv_full.notify_all();
   p->worker.join();
   delete p;
+}
+
+// ---------------------------------------------------------------------------
+// The first-fit round schedule of global_map/loop_closure.py
+// `schedule_rounds`: each of the n pairs (int32 (n, 2), slots in
+// [0, n_slots)) goes, in order, to the lowest round in which neither of its
+// slots is used yet.  One round bitmask per slot; writes each pair's round
+// and its lane (its place among the round's pairs), the number of rounds
+// and the most pairs in one round.  Returns -1 for a slot out of range.
+int gem_first_fit_rounds(const int32_t* pairs, int n, int n_slots,
+                         int32_t* round, int32_t* lane, int* n_rounds,
+                         int* max_lanes) {
+  std::vector<std::vector<uint64_t>> used(n_slots > 0 ? n_slots : 0);
+  std::vector<int32_t> count;  // pairs per round so far
+  for (int q = 0; q < n; ++q) {
+    const int i = pairs[2 * q], j = pairs[2 * q + 1];
+    if (i < 0 || i >= n_slots || j < 0 || j >= n_slots) return -1;
+    std::vector<uint64_t>& a = used[i];
+    std::vector<uint64_t>& b = used[j];
+    size_t w = 0;
+    uint64_t free_bits = 0;
+    for (;; ++w) {
+      const uint64_t m = (w < a.size() ? a[w] : 0) | (w < b.size() ? b[w] : 0);
+      free_bits = ~m;
+      if (free_bits != 0) break;
+    }
+    const int r = static_cast<int>(64 * w) + __builtin_ctzll(free_bits);
+    const uint64_t bit = uint64_t{1} << (r % 64);
+    if (a.size() <= w) a.resize(w + 1, 0);
+    if (b.size() <= w) b.resize(w + 1, 0);
+    a[w] |= bit;
+    b[w] |= bit;  // a and b are one vector when i == j
+    if (r == static_cast<int>(count.size())) count.push_back(0);
+    round[q] = r;
+    lane[q] = count[r]++;
+  }
+  *n_rounds = static_cast<int>(count.size());
+  *max_lanes = count.empty() ? 0 : *std::max_element(count.begin(),
+                                                      count.end());
+  return 0;
 }
 
 }  // extern "C"

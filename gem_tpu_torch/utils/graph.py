@@ -203,6 +203,11 @@ class DeviceProgram:
             # it, and a collection that destroys it during a later capture
             # invalidates that capture (or crashes one with IF nodes)
             graph.reset()
+            # and capture the next graph into a fresh pool: the tensors the
+            # failed capture made there live on in those frames, so the
+            # allocator keeps the pool, with no user if this graph was its
+            # only one, and a capture into such a pool fails an assertion
+            self._pool = None
             name = getattr(fn, "func", fn).__name__
             # a failed IF node may surface as the capture's end failing
             cause = e

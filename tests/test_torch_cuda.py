@@ -1379,12 +1379,28 @@ def _join_case(case):
         # C = 257: one full block of 256 rows and a block of one row
         slots = _join_slots(3, 257, res, 4, span=3)
         rounds, valid = lc.schedule_rounds([(0, 1), (1, 2), (2, 0)])
+    elif case == "wide_round":
+        # 600 slots of 6 rows: a first round of 300 disjoint pairs, more
+        # than one launch's 256, then a round of 40
+        slots = _join_slots(600, 6, res, 5, span=1, valid_frac=0.9)
+        rounds, valid = lc.schedule_rounds(
+            [(2 * k, 2 * k + 1) for k in range(300)]
+            + [(2 * k + 1, 2 * k + 2) for k in range(40)])
+        assert valid.sum(axis=1).tolist()[:2] == [300, 40]
     else:
         raise ValueError(case)
     return slots, rounds, valid, res
 
 
-_JOIN_CASES = ("duplicates", "aliased_keys", "padding", "one_row_blocks")
+_JOIN_CASES = ("duplicates", "aliased_keys", "padding", "one_row_blocks",
+               "wide_round")
+_K_MAX_PAIRS = 256      # pairs of one K4 launch (csrc/refuse_join.cu)
+
+
+def _k4_launches(valid):
+    """K4 launches of an event: per round with a valid pair, one per
+    kMaxPairs pairs."""
+    return int(sum(-(-int(n) // _K_MAX_PAIRS) for n in valid.sum(axis=1)))
 
 
 def _sorted_key_join(slots, rounds, valid, res):
@@ -1475,13 +1491,17 @@ def test_refuse_rounds_routes_cpu_tensors_to_the_plain_join(monkeypatch):
 
 def test_refuse_join_refuses_other_devices():
     from gem_tpu_torch.global_map import loop_closure as lc
-    from gem_tpu_torch.kernels.refuse_join import refuse_join
+    from gem_tpu_torch.kernels.refuse_join import (refuse_join,
+                                                   refuse_join_rounds)
 
     slots, rounds, valid, res = _join_case("padding")
     keys, rows = lc._sorted_keys(slots, res)
     with pytest.raises(ValueError, match="unsupported device"):
         refuse_join(keys, rows, slots.z, slots.variance, rounds[0][valid[0]],
                     torch.zeros((), dtype=torch.int64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        refuse_join_rounds(keys, rows, slots.z, slots.variance, rounds,
+                           valid, torch.zeros((), dtype=torch.int64))
 
 
 def _on(slots, device):
@@ -1489,10 +1509,26 @@ def _on(slots, device):
                           for f in dataclasses.fields(slots)})
 
 
+def _per_round_join(slots, rounds, valid, res):
+    """The event's join as one `refuse_join` call per round with a valid
+    pair: (z, variance, fused count, launches)."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.kernels.refuse_join import refuse_join
+
+    keys, rows = lc._sorted_keys(slots, res)
+    z, var = slots.z.clone(), slots.variance.clone()
+    total = torch.zeros((), dtype=torch.int64, device=z.device)
+    launched = sum(refuse_join(keys, rows, z, var, rounds[r][valid[r]], total)
+                   for r in range(rounds.shape[0]) if valid[r].any())
+    return z, var, int(total), launched
+
+
 def _k4_against_plain(slots, rounds, valid, res):
-    """K4's `refuse_rounds` on the card against the plain join on the card,
-    bitwise; the caller's tensors unchanged; one launch per round with a
-    valid pair.  Returns the fused-cell count."""
+    """K4's `refuse_rounds` (every round in one native call) on the card
+    against the plain join on the card and against one `refuse_join` call
+    per round, bitwise; the caller's tensors unchanged; as many launches as
+    the per-round calls: one per round with a valid pair and kMaxPairs
+    pairs.  Returns the fused-cell count."""
     from gem_tpu_torch.global_map import loop_closure as lc
     from gem_tpu_torch.kernels.refuse_join import refuse_join
 
@@ -1500,13 +1536,17 @@ def _k4_against_plain(slots, rounds, valid, res):
                                                    "valid")}
     before = refuse_join.launches
     got, nf = lc.refuse_rounds(slots, rounds, valid, res)
-    assert refuse_join.launches - before == int(valid.any(axis=1).sum())
+    launched = refuse_join.launches - before
+    z, var, n_rounds_path, launched_rounds = _per_round_join(slots, rounds,
+                                                             valid, res)
+    assert launched == launched_rounds == _k4_launches(valid)
     again, nf2 = lc.refuse_rounds(slots, rounds, valid, res)
     want, wnf = lc.refuse_rounds_plain(slots, rounds, valid, res)
-    assert int(nf) == int(nf2) == int(wnf)
+    assert int(nf) == int(nf2) == int(wnf) == n_rounds_path
     for k in ("z", "variance"):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
         assert torch.equal(getattr(got, k), getattr(again, k)), k
+    assert torch.equal(got.z, z) and torch.equal(got.variance, var)
     for k, v in kept.items():
         assert torch.equal(getattr(slots, k), v), k
     return int(nf)
@@ -1516,6 +1556,43 @@ def _k4_against_plain(slots, rounds, valid, res):
 def test_k4_refuse_rounds_equals_the_plain_join_on_card(cuda, case):
     slots, rounds, valid, res = _join_case(case)
     assert _k4_against_plain(_on(slots, cuda), rounds, valid, res) > 0
+
+
+@pytest.mark.parametrize("fault", ["slot_out_of_range", "negative_slot",
+                                   "slot_twice_in_a_round", "pair_of_one"])
+def test_k4_bad_rounds_are_refused_before_any_launch(cuda, fault):
+    """A bad lane in the last round refuses the whole event: nothing is
+    launched, nothing written, nothing counted.  Padding lanes are not
+    checked."""
+    from gem_tpu_torch.global_map import loop_closure as lc
+    from gem_tpu_torch.kernels.refuse_join import (refuse_join,
+                                                   refuse_join_rounds)
+
+    slots, rounds, valid, res = _join_case("duplicates")
+    slots = _on(slots, cuda)
+    K = slots.z.shape[0]
+    rounds, valid = rounds.copy(), valid.copy()
+    rounds[~valid] = K + 7          # padding lanes are never read
+    last = int(np.nonzero(valid.any(axis=1))[0][-1])
+    lane = int(np.nonzero(valid[last])[0][0])
+    if fault == "slot_out_of_range":
+        rounds[last, lane, 1] = K
+    elif fault == "negative_slot":
+        rounds[last, lane, 0] = -1
+    elif fault == "slot_twice_in_a_round":
+        rounds[last, lane + 1] = (rounds[last, lane, 0], K - 1)
+        valid[last, lane + 1] = True
+    else:
+        rounds[last, lane, 1] = rounds[last, lane, 0]
+    keys, rows = lc._sorted_keys(slots, res)
+    z, var = slots.z.clone(), slots.variance.clone()
+    total = torch.zeros((), dtype=torch.int64, device=cuda)
+    before = refuse_join.launches
+    with pytest.raises(ValueError, match="nothing launched"):
+        refuse_join_rounds(keys, rows, z, var, rounds, valid, total)
+    torch.cuda.synchronize()
+    assert refuse_join.launches == before and int(total) == 0
+    assert torch.equal(z, slots.z) and torch.equal(var, slots.variance)
 
 
 def test_k4_full_ring_equals_the_plain_join_on_card(cuda, monkeypatch):
@@ -1540,7 +1617,9 @@ def test_k4_full_ring_equals_the_plain_join_on_card(cuda, monkeypatch):
     opt[1:, :2] += cfg.map.resolution * rng.integers(-3, 4, (K - 1, 2))
     kept = [t.clone() for t in (store.slots.z, store.slots.variance)]
     got, stats = lc.apply_loop_closure(store, cfg, opt)
-    monkeypatch.setattr(lc, "_refuse_rounds_sorted", lc.refuse_rounds_plain)
+    monkeypatch.setattr(lc, "_refuse_rounds_sorted",
+                        lambda slots, rounds, valid, _keys:
+                        lc.refuse_rounds_plain(slots, rounds, valid, res))
     want, wstats = lc.apply_loop_closure(store, cfg, opt)
     assert stats == wstats and stats["n_cells_fused"] > 0
     for k in ("x", "y", "z", "variance"):

@@ -293,13 +293,124 @@ def test_loop_closure_k32_dense_blob():
                                atol=1e-5)
 
 
-def test_select_pairs_is_the_reference_s():
-    centers = np.stack([np.arange(8.0), np.zeros(8)], axis=1)
-    for cap in (100, 8, 2):
-        assert tlc.select_pairs(centers, 3.5, cap) \
-            == jlc.select_pairs(centers, 3.5, cap)
-    capped = tlc.select_pairs(centers, 3.5, 2)
-    assert [j for i, j in capped if i == 4] == [3, 5]
+def _lapped_ring(n=64, step=11.0, lap=320.0):
+    """Slot centres `step` m apart along a circuit of `lap` m, lapped: the
+    re-stitch cell's ring, where every cap of 8 binds."""
+    r = lap / (2 * np.pi)
+    s = np.arange(n) * step
+    return np.stack([r * np.cos(s / r), r * np.sin(s / r)],
+                    axis=1).astype(np.float32)
+
+
+def _select_case(case):
+    """(centers, radius, caps)."""
+    rng = np.random.default_rng(7)
+    if case == "line":
+        return np.stack([np.arange(8.0), np.zeros(8)], axis=1), 3.5, \
+            (100, 8, 2)
+    if case == "ties":
+        # a grid: many neighbours at exactly equal distances, cut by the cap
+        g = np.stack(np.meshgrid(np.arange(6), np.arange(5)), -1)
+        return g.reshape(-1, 2).astype(np.float32), 2.5, (1, 3, 4, 7)
+    if case == "random_capped":
+        return rng.uniform(-10, 10, (40, 2)).astype(np.float32), 9.0, \
+            (0, 1, 5)
+    if case == "random_slack":
+        return rng.uniform(-30, 30, (40, 2)).astype(np.float32), 6.0, \
+            (40, 1000)
+    if case == "lapped_ring":
+        return _lapped_ring(), 25.0, (8,)
+    if case == "tiny":
+        return np.zeros((1, 2), np.float32), 1.0, (8,)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["line", "ties", "random_capped",
+                                  "random_slack", "lapped_ring", "tiny"])
+def test_select_pairs_is_the_reference_s(case):
+    """The array-op selection equals the reference's loops: the same list
+    of (int, int) tuples, i-major, j ascending, the nearest M kept with
+    ties in j order."""
+    centers, radius, caps = _select_case(case)
+    for cap in caps:
+        got = tlc.select_pairs(centers, radius, cap)
+        want = jlc.select_pairs(centers, radius, cap)
+        assert got == want
+        assert type(got) is list
+        assert all(type(p) is tuple and all(type(v) is int for v in p)
+                   for p in got)
+    if case == "line":
+        capped = tlc.select_pairs(centers, 3.5, 2)
+        assert [j for i, j in capped if i == 4] == [3, 5]
+    if case == "ties":
+        # the cap binds inside a run of equal distances
+        assert len(tlc.select_pairs(centers, radius, 3)) \
+            < len(tlc.select_pairs(centers, radius, 100))
+    if case == "lapped_ring":
+        assert len(tlc.select_pairs(centers, radius, 8)) == 64 * 8
+
+
+def _schedule_case(case):
+    rng = np.random.default_rng(11)
+    if case == "empty":
+        return []
+    if case == "one_pair":
+        return [(3, 1)]
+    if case == "a_slot_in_every_pair":
+        # more rounds than one 64-bit mask holds
+        return [(5, int(j)) for j in rng.integers(0, 90, 150)]
+    if case == "random":
+        return [tuple(int(v) for v in rng.integers(0, 12, 2))
+                for _ in range(70)]
+    if case == "lapped_ring":
+        return jlc.select_pairs(_lapped_ring(), 25.0, 8)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["empty", "one_pair", "a_slot_in_every_pair",
+                                  "random", "lapped_ring"])
+def test_schedule_rounds_is_the_reference_s(case):
+    """The bitmask first-fit gives the reference's rounds and valid bit for
+    bit (dtype, power-of-two padding), from a list or an array of pairs."""
+    pairs = _schedule_case(case)
+    want = jlc.schedule_rounds(pairs)
+    for given in (pairs, np.asarray(pairs, np.int64).reshape(-1, 2)):
+        got = tlc.schedule_rounds(given)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    if case == "lapped_ring":
+        assert len(pairs) == 512 and want[1].any(axis=1).sum() == 22
+    if case == "a_slot_in_every_pair":
+        assert want[0].shape[0] == 256
+
+
+@pytest.mark.parametrize("case", ["empty", "one_pair", "a_slot_in_every_pair",
+                                  "random", "lapped_ring"])
+def test_first_fit_fallback_is_the_native_library_s(case, monkeypatch):
+    """`native.first_fit_rounds` without its library (the Python fallback)
+    gives the library's rounds, lanes and counts, and `schedule_rounds`
+    through it the reference's arrays; both refuse a negative slot."""
+    from gem_tpu_torch import native
+
+    assert native.available()
+    pairs = np.asarray(_schedule_case(case), np.int32).reshape(-1, 2)
+    want = jlc.schedule_rounds(_schedule_case(case))
+    got = {}
+    for path in ("library", "fallback"):
+        if path == "fallback":
+            monkeypatch.setattr(native, "_load", lambda: None)
+        got[path] = native.first_fit_rounds(pairs)
+        for g, w in zip(tlc.schedule_rounds(pairs), want):
+            np.testing.assert_array_equal(g, w)
+        with pytest.raises(ValueError):
+            native.first_fit_rounds([(0, -1)])
+    (lr, ll, *lc), (fr, fl, *fc) = got["library"], got["fallback"]
+    assert lr.dtype == fr.dtype == ll.dtype == fl.dtype == np.int32
+    np.testing.assert_array_equal(lr, fr)
+    np.testing.assert_array_equal(ll, fl)
+    assert lc == fc == [want[1].any(axis=1).sum(),
+                        want[1].sum(axis=1).max(initial=0)]
 
 
 def test_slot_corrections_match_jax():
