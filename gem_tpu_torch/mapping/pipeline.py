@@ -124,7 +124,9 @@ def init_pipeline_state(cfg, device) -> PipelineState:
 
 def _keyframe_scan(frame: Frame, M: int):
     """Subsampled raw scan of the keyframe frame, valid rows compacted to
-    the front: (points (..., M, 3), count (...))."""
+    the front: (points (..., M, 3), count (...)).  A lane with a
+    non-finite coordinate (an organized cloud's pixel with no depth) is no
+    valid row."""
     P = frame.points.shape[-2]
     lead = frame.points.shape[:-2]
     dev = frame.points.device
@@ -132,7 +134,9 @@ def _keyframe_scan(frame: Frame, M: int):
         idx = torch.round(torch.linspace(0, P - 1, M, device=dev)).long()
     else:
         idx = torch.arange(M, device=dev) % P
-    sel_ok = frame.valid[..., idx] & (torch.arange(M, device=dev) < P)
+    sel_ok = frame.valid[..., idx] \
+        & torch.isfinite(frame.points[..., idx, :]).all(-1) \
+        & (torch.arange(M, device=dev) < P)
     pos = torch.cumsum(sel_ok.to(torch.int32), -1) - 1
     tgt = torch.where(sel_ok, pos, M).long()        # row M: dump, cut off
     pts = torch.zeros(lead + (M + 1, 3), dtype=torch.float32, device=dev)

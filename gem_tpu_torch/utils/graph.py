@@ -5,9 +5,11 @@ transforms, `fn(state, inputs) -> (state, outputs)`: CUDA graphs.
 such functions over it.  On the card each (function, input structure)
 pair is captured once into a `torch.cuda.CUDAGraph` and replayed after:
 
-  * the inputs are copied into static input buffers before each replay; a
-    frame with or without an optional leaf (`loop_closure`, `image`) is
-    another structure and another graph, as in a JAX retrace;
+  * the inputs are copied into static input buffers before each replay,
+    one `torch._foreach_copy_` per dtype (a frame's dozen leaves in three
+    calls: the host's work before a replay is on a closed loop's critical
+    path); a frame with or without an optional leaf (`loop_closure`,
+    `image`) is another structure and another graph, as in a JAX retrace;
   * inside the captured region, every state leaf that the function
     replaces instead of updating in place is copied back into its buffer
     (`write_back`), so the state stays at its addresses across replays;
@@ -37,9 +39,12 @@ Each call is one unit of the tracer (utils/observability.py): spans
 `gem.program.copy_in`, `gem.program.replay` and `gem.program.copy_out`
 (on the CPU the call itself is the replay and the copy spans are empty),
 `gem.program.capture` around a first call's eager run and capture; counters
-`program.replays`, `program.captures` and `program.graphs_dropped`, and on
-each replay what the function counted while it was captured (a fleet's
-`control.selects`), so a replay counts what an eager call does; stamps
+`program.replays`, `program.captures` and `program.graphs_dropped`,
+`program.bytes_in` on each replay (the bytes copied into the graph's static
+inputs: the input leaves' `nbytes`, summed once at capture; nothing on the
+CPU, which copies nothing), and on each replay what the function counted
+while it was captured (a fleet's `control.selects`), so a replay counts
+what an eager call does; stamps
 `program.in` before the input copies, `write_back` before the write-back
 and `program.out` after the output copies.  The graphs hold the stamps
 exactly while the tracer is on: turning it on or off drops them, to be
@@ -84,6 +89,17 @@ def write_back(dst, src) -> None:
 def _signature(leaves: dict) -> tuple:
     return tuple((k, tuple(t.shape), t.dtype, t.device)
                  for k, t in leaves.items())
+
+
+def _copy_groups(static_in: list) -> list:
+    """[(buffers, positions)]: the static inputs of each dtype and their
+    positions among the input leaves, for one `_foreach_copy_` a dtype."""
+    groups = {}
+    for i, t in enumerate(static_in):
+        dst, at = groups.setdefault(t.dtype, ([], []))
+        dst.append(t)
+        at.append(i)
+    return list(groups.values())
 
 
 def _fresh(t):
@@ -160,11 +176,13 @@ class DeviceProgram:
                                      f"{t.device}, the state on {dev}")
             with TRACER.span("gem.program.capture"):
                 return self._run_and_capture(fn, inputs, key)
-        graph, static_in, static_out, counted = entry
+        graph, copies, static_out, counted, nbytes = entry
         TRACER.mark("program.in", dev)
         with TRACER.span("gem.program.copy_in"):
-            for dst, src in zip(static_in, leaves.values()):
-                dst.copy_(src)
+            src = list(leaves.values())
+            for dst, at in copies:
+                torch._foreach_copy_(dst, [src[i] for i in at])
+        TRACER.count("program.bytes_in", nbytes)
         with TRACER.span("gem.program.replay"):
             graph.replay()
         TRACER.count("program.replays")
@@ -215,7 +233,8 @@ class DeviceProgram:
                 cause = cause.__context__
             raise RuntimeError(f"DeviceProgram: CUDA graph capture of "
                                f"{name} failed: {cause or e}") from e
-        self._graphs[key] = (graph, list(tree_leaves(static_in).values()),
-                             static_out, counted)
+        static_in = list(tree_leaves(static_in).values())
+        self._graphs[key] = (graph, _copy_groups(static_in), static_out,
+                             counted, sum(t.nbytes for t in static_in))
         TRACER.count("program.captures")
         return out

@@ -970,6 +970,71 @@ def test_graph_scan_and_fleet_equal_eager_bitwise(cuda):
         assert not _leaves_equal(outs, ref_outs), t
 
 
+def _depth_feed(device, n_frames):
+    """The depth cell's configuration uncut (407,040 lanes, 200 x 200 cells
+    at 0.04 m) and its feed over `n_frames` organized clouds, the four
+    cameras in turn (benchmark/feeds/depth_frame.py)."""
+    from benchmark import frames, registry
+    from benchmark.reference import config as r_config
+    from gem_tpu_torch.config import config_from_dict
+
+    bench = registry.Benchmark(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cell = bench.cell("anymal_d435x4_8m.online")
+    t = dict(cell.traffic, circuit_frames=n_frames)
+    scans = frames.make_scans(t, 2 ** 31 + 2055, device,
+                              bench.plugin("scans", t["scan"]).pattern)
+    p = cell.config["pipeline"]
+    cfg = config_from_dict(p)
+    feed = bench.plugin("feeds", t["feed"]).Feed(
+        cfg, r_config.config_from_dict(p), t, scans, device)
+    return cfg, feed
+
+
+def _finite_lanes(frame):
+    """The frame with its NaN lanes removed in order and invalid zero lanes
+    padded on (benchmark/reference/organized.py, upstream's intake)."""
+    from benchmark.reference import organized
+
+    points, intensity, valid = organized.clean(
+        frame.points, frame.intensity, frame.points.shape[0])
+    return dataclasses.replace(frame, points=points, intensity=intensity,
+                               valid=valid)
+
+
+def test_depth_clouds_replay_bitwise_their_eager_step_on_card(cuda):
+    """Eight organized clouds at the depth cell's widths, one per camera
+    twice: `ElevationPipeline`'s graph replays equal the eager `step`
+    bitwise, every leaf, after every frame; and the step on each cloud
+    with its NaN lanes equals the step on the cloud without them, with no
+    NaN anywhere in the state or the outputs."""
+    from gem_tpu_torch.mapping.pipeline import (ElevationPipeline,
+                                                init_pipeline_state, step)
+    from gem_tpu_torch.utils.tree import tree_leaves
+
+    cfg, feed = _depth_feed(cuda, 8)
+    assert cfg.max_points == 407040 and cfg.map.length == 200
+    pipe = ElevationPipeline(cfg, device=cuda)
+    state = init_pipeline_state(cfg, cuda)
+    clean = init_pipeline_state(cfg, cuda)
+    for g in range(8):
+        f = feed.device_frame(g)
+        assert bool(torch.isnan(f.points).any()) and bool(f.valid.all())
+        out = pipe.process(f)
+        state, ref = step(state, f, cfg)
+        clean, clean_out = step(clean, _finite_lanes(f), cfg)
+        assert not _leaves_equal(pipe.state, state), g
+        assert not _leaves_equal(out, ref), g
+        assert not _leaves_equal(clean, state), g
+        assert not _leaves_equal(clean_out, ref), g
+        nan = [k for tree in (state, ref)
+               for k, t in tree_leaves(tree).items()
+               if t.is_floating_point() and bool(torch.isnan(t).any())]
+        assert nan == [], (g, nan)
+    assert int(ref.metrics["points_valid"]) > 200000
+    assert int(ref.metrics["cells_fused"]) > 10000
+
+
 def test_graph_outputs_kept_across_process_keep_their_values(cuda):
     """An output kept across the next `process` keeps its values: the
     pipeline copies its outputs out of the graph's tensors."""

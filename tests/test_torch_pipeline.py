@@ -306,3 +306,25 @@ def test_write_back_reads_every_source_before_writing():
     with pytest.raises(ValueError):
         write_back({"a": a}, {"a": torch.zeros(3)})
 
+
+
+def test_copy_groups_copy_every_input_into_its_buffer():
+    """utils/graph.py `_copy_groups`, the replay's input copy: one group a
+    dtype, in the leaves' order, and a `_foreach_copy_` a group writes each
+    leaf, a strided one and two leaves from one tensor included, into its
+    own buffer."""
+    from gem_tpu_torch.utils.graph import _copy_groups
+
+    cloud = torch.arange(24.0).view(6, 4)
+    pose = torch.arange(19.0)
+    src = [cloud[:, :3], torch.tensor([True, False]), pose[:16].view(4, 4),
+           torch.arange(3, dtype=torch.int32), pose[16:], pose[16:]]
+    static_in = [torch.zeros_like(t, memory_format=torch.contiguous_format)
+                 for t in src]
+    groups = _copy_groups(static_in)
+    assert [at for _, at in groups] == [[0, 2, 4, 5], [1], [3]]
+    assert all(d is static_in[i] for dst, at in groups
+               for d, i in zip(dst, at))
+    for dst, at in groups:
+        torch._foreach_copy_(dst, [src[i] for i in at])
+    assert all(torch.equal(d, s) for d, s in zip(static_in, src))

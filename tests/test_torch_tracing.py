@@ -3,8 +3,10 @@ CPU: off it records nothing; on it stamps each stage of each frame once
 (the IF bodies only on the frames that take them) without changing a bit
 of the step; `apply_loop_closure` records its spans once per call and
 counts every read it makes; a profiler alone turns on its spans and
-counters but stamps nothing, and `trace(dir)` turns it on.  The stamps on the card and
-the captured graphs' nodes are tested in tests/test_torch_cuda.py."""
+counters but stamps nothing, and `trace(dir)` turns it on; `program.bytes_in`
+counts a replay's input bytes on the card and nothing on the CPU.  The
+stamps on the card and the captured graphs' nodes are tested in
+tests/test_torch_cuda.py."""
 
 import dataclasses
 import json
@@ -354,3 +356,34 @@ def test_reset_zeroes_the_ring_in_place():
     with TRACER.unit():
         TRACER.mark("refuse", "cpu")
     assert TRACER.recent_rows("cpu", 5) == [0] and ring[0].any()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_bytes_in_counts_the_inputs_once_per_replay(device):
+    """`program.bytes_in`: on the card, each replay counts the bytes it
+    copies into the graph's static inputs (every input leaf's `nbytes`),
+    per unit, as the benchmark reads it (the tracer off, a profiler
+    recording); the eager first call, which captures, copies none.  The
+    CPU copies nothing and counts nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    cfg = _cfg()
+    frames = [tree_map(lambda t: t.to(device), f) for f in _frames(cfg, 4)]
+    pipe = ElevationPipeline(cfg, device=device)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for f in frames:
+            pipe.process(f)
+    per_unit = [0] * len(frames)
+    for rec in TRACER.log:
+        if rec[0] == "count" and rec[1] == "program.bytes_in":
+            per_unit[rec[2]] += rec[3]
+    nbytes = sum(t.nbytes for t in tree_leaves(frames[0]).values())
+    if device == "cpu":
+        assert per_unit == [0] * len(frames)
+        assert "program.bytes_in" not in TRACER.counts
+    else:
+        assert per_unit == [0] + [nbytes] * (len(frames) - 1), per_unit
+        assert nbytes > 4096 * (12 + 4 + 1 + 4)
